@@ -1,0 +1,87 @@
+"""Where the device time of one v2a batch goes, on one CUDA card.
+
+    python -m multimodal_diffusion_torch.tools.profile_v2a [--clips 8] [--steps 50]
+
+Builds the `bench.py` workload (mvp+v2a at full width, seeded N(0, 0.02)
+weights, bf16 compute, seeded uniform prompt frames), runs one batch to warm
+up, then one batch under torch.profiler, and prints one JSON line: that
+batch's wall time, the device's busy time in it (sum of the CUDA kernels'
+self time), the idle share 1 - busy / wall of that same batch, and the
+kernels with the most device time. The profiler slows the host, so the
+profiled batch is slower than an unprofiled one; `chip_smoke.py` times those.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from ..infer.sample_clip import build_components, sample_one_direction
+from ..utils.io import latent_shapes_from_config, mvp_v2a_config
+
+
+def v2a_workload(clips: int = 8, steps: int = 50, seed: int = 0):
+    """The mvp+v2a model on the card with every parameter N(0, 0.02) (as
+    `bench.py`), uniform uint8 prompt frames [clips, T, H, W, 3], and a
+    `run()` that samples audio for them and waits for the card."""
+    cfg = mvp_v2a_config()
+    for mod in ("audio", "video"):
+        cfg["diffusion"][mod]["sampler_steps"] = steps
+    model = build_components(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    _, _, T, H, W = latent_shapes_from_config(cfg, clips)["video"]
+    frames = torch.randint(0, 256, (clips, T, H, W, 3), device="cuda", dtype=torch.uint8,
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    def run():
+        out = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
+                                   prompt_video=frames, device="cuda",
+                                   generator=torch.Generator().manual_seed(seed + 1))
+        torch.cuda.synchronize()
+        return out
+
+    return cfg, model, run
+
+
+def profile_batch(run, top: int = 15) -> dict:
+    """Device time by kernel over one call of `run`, and that call's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    ranked = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    return {"wall_s": wall_s, "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s,
+            "top": [{"name": e.key[:200], "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3} for e in ranked]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--clips", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=50)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this tool profiles the card")
+    _, _, run = v2a_workload(args.clips, args.steps)
+    run()  # warm-up: kernel build, cuDNN plans, allocator
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"phase": "profile", "clips": args.clips, "steps": args.steps,
+                      "nvidia_smi": smi, **profile_batch(run)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
