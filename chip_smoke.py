@@ -5,46 +5,76 @@
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — the card (nvidia-smi name, power limit), torch and CUDA versions;
-  2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu;
+  2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu and
+               csrc/flash_bwd.cu, one nvcc each, started together; their
+               registers and spills;
   3. kernel  — the flash-attention forward kernel against its plain PyTorch
-               version (out and lse) at the mvp, flagship and t2i shapes, masked
-               and unmasked, bf16 and fp32 (TF32 off), with its time, the plain
-               version's, SDPA's (a yardstick the port never calls) and the
-               least time the card could take;
-  4. v2a     — the main path at mvp full width through the public entry point
+               version (out and lse), then the two backward kernels (dK/dV,
+               dQ) against theirs (dq, dk, dv), at the mvp sampling and
+               training, flagship and t2i shapes, masked and unmasked, bf16
+               and fp32 (TF32 off), with each kernel's time, the plain
+               version's, SDPA's forward or backward (a yardstick the port
+               never calls) and the least time the card could take;
+  4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
-               the kernel must launch exactly 50 x 8 = 400 times; one
-               denoise_tokens forward with and without the kernel must agree.
+               the forward kernel must launch exactly 50 x 8 = 400 times; one
+               denoise_tokens forward with and without the kernel must agree;
+  5. train   — the mvp train step at full width through create_trainer +
+               run_training (the bench.py --task train workload: B=8, bf16
+               compute, fp32 parameters, AdamW + EMA, targets from the
+               Any2AnySchedule): 2 warm-up steps, then 10 timed steps in which
+               each of the three kernels must launch exactly 8 times per step;
+               finite losses, parameters that stay put at LR 0 and move after,
+               an EMA that moves, and one full-width gradient with and without
+               the kernels that agree.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
-`python -m multimodal_diffusion_torch.tools.profile_v2a`.
+`python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
+`python -m multimodal_diffusion_torch.tools.profile_train`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # (name, [B, H, N, Dh], masked keys in batch row 0): the mvp sampling call
-# (CFG-doubled batch 16), the flagship training shape, the t2i-512 core
-# (1152 padded from 1101: 51 keys masked), and one batch row fully masked
+# (CFG-doubled batch 16), the mvp train step (batch 8), the flagship training
+# shape, the t2i-512 core (1152 padded from 1101: 51 keys masked), and one
+# batch row fully masked
 KERNEL_CASES = [
     ("mvp", (16, 8, 133, 64), 0),
+    ("mvp_train", (8, 8, 133, 64), 0),
     ("flagship", (8, 8, 421, 128), 0),
     ("t2i", (2, 4, 1152, 128), 51),
     ("all_masked_row", (2, 8, 133, 64), 133),
 ]
 TOL = {"float32": {"out": 1e-4, "lse": 1e-4}, "bfloat16": {"out": 2e-2, "lse": 1e-3}}
+# backward kernels vs their plain version: max |diff| / max(1, max |plain|)
+# over dq, dk, dv. fp32 sums in another order; in bf16 both round P and dS
+# to bf16, and another fp32 sum order can flip one rounding by an ulp (2^-8)
+# (the H100 read <= 6.0e-7 in fp32 and <= 1.9e-3 in bf16, see PERF.md)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 V2A_CLIPS, V2A_STEPS = 8, 50
+TRAIN_CLIPS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
+# one full-width train-loss gradient (eval mode, fixed batch and draws) with
+# the kernels vs dense attention, bf16: max |diff| / max |dense| over every
+# qkv weight grad, and the relative difference of the global grad norm. The
+# kernels round dS to bf16 where dense autograd keeps fp32; the H100 read
+# 7.8e-3 (two bf16 ulps, 2^-7) on the qkv grads and 2.2e-4 on the norm, see
+# PERF.md
+GRAD_REL_TOL = 2.5e-2
 # denoise_tokens with and without the kernel, bf16: max |diff| / max |ref|.
 # Both paths round activations to bf16 (relative 2^-8 = 3.9e-3) after each of
 # 8 layers; the H100 read 3.9e-3 (eps_v) and 4.5e-3 (eps_a), see PERF.md
@@ -112,6 +142,69 @@ def attention_bound_ms(shape, dtype_name: str, n_valid_keys: list, masked: bool)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bwd_bound_ms(kernel: str, shape, dtype_name: str, n_valid_keys: list,
+                           masked: bool):
+    """The same for a backward kernel: dK/dV reads q, dO, k, v, lse, D and
+    writes dk, dv (4 products: S, dP, dV, dK); dQ reads the same and writes
+    dq (3 products: S, dP, dQ)."""
+    B, H, N, Dh = shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    tensors, products = (6, 4) if kernel == "dkdv" else (5, 3)
+    nbytes = tensors * B * H * N * Dh * elt + 2 * B * H * N * 4 + (B * N if masked else 0)
+    flops = products * 2 * H * N * Dh * sum(n_valid_keys)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def backward_case(fa, name, shape, dtype, q, k, v, valid, out, lse, n_valid, cycles_per_s):
+    """The two backward kernels at one case: checked against their plain
+    version, then timed alone, beside the plain version and SDPA's backward
+    (torch.autograd.grad of its output with the same dO)."""
+    import torch
+    import torch.nn.functional as F
+
+    dname = str(dtype).split(".")[-1]
+    B, H, N, Dh = shape
+    g = torch.Generator(device=q.device).manual_seed(100 + N)
+    dout = torch.randn(shape, generator=g, device=q.device).to(dtype)
+    grads = fa.flash_backward(q, k, v, out, lse, dout, valid)
+    refs = fa.flash_backward_reference(q, k, v, out, lse, dout, valid)
+    torch.cuda.synchronize()
+    errs = {gname: float((a.float() - b.float()).abs().max()) for gname, a, b in
+            zip(("dq", "dk", "dv"), grads, refs)}
+    rel = max(float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+              for a, b in zip(grads, refs))
+    if not rel <= BWD_TOL[dname]:
+        raise AssertionError(f"{name} {dname}: backward kernels disagree with their plain "
+                             f"version: {errs}, relative {rel} (tol {BWD_TOL[dname]})")
+    if n_valid[0] == 0 and not all(bool((x[0] == 0).all()) for x in grads):
+        raise AssertionError(f"{name} {dname}: a fully masked row's grads are not exactly 0")
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    buf = torch.empty((B, N, 3, H, Dh), dtype=dtype, device=q.device)
+    ms = {kernel: cuda_median_ms(lambda kernel=kernel: fa.launch_backward_kernel(
+        kernel, q, k, v, dout, lse, delta, valid, buf), cycles_per_s) for kernel in ("dkdv", "dq")}
+    plain_ms = cuda_median_ms(
+        lambda: fa.flash_backward_reference(q, k, v, out, lse, dout, valid, delta), cycles_per_s)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=None if valid is None else valid[:, None, None, :])
+    library_ms = cuda_median_ms(
+        lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True), cycles_per_s)
+    recs = {}
+    for kernel in ("dkdv", "dq"):
+        bound_ms, bound_by = attention_bwd_bound_ms(kernel, shape, dname, n_valid,
+                                                    valid is not None)
+        rec = {"phase": "kernel", "kernel": f"flash_bwd_{kernel}", "case": name,
+               "shape": list(shape), "dtype": dname, "masked_keys": N * B - sum(n_valid),
+               "max_abs_err": errs, "rel_err": rel, "tol": BWD_TOL[dname],
+               "ms": ms[kernel], "pair_ms": ms["dkdv"] + ms["dq"], "plain_pair_ms": plain_ms,
+               "library_pair_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms[kernel]}
+        emit(rec)
+        recs[kernel] = rec
+    return recs
+
+
 def kernel_phase(fa):
     import torch
     import torch.nn.functional as F
@@ -160,6 +253,9 @@ def kernel_phase(fa):
                    "bound_share": bound_ms / ms}
             emit(rec)
             results[(name, dname)] = rec
+            for kernel, brec in backward_case(fa, name, shape, dtype, q, k, v, valid, out, lse,
+                                              n_valid, cycles_per_s).items():
+                results[(name, dname, kernel)] = brec
     return results
 
 
@@ -222,6 +318,92 @@ def v2a_phase(fa):
     return launches
 
 
+def train_phase(fa):
+    """The mvp train step at full width through create_trainer + run_training."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.tools.profile_train import train_workload
+    from multimodal_diffusion_torch.train import trainer as TT
+
+    t0 = time.perf_counter()
+    cfg, bundle, batch, run = train_workload(TRAIN_CLIPS)
+    setup_s = time.perf_counter() - t0
+    params = list(bundle.model.parameters())
+    before = [p.detach().clone() for p in params]
+    t0 = time.perf_counter()
+    run(1)  # optax semantics: the first update reads LR(0) = 0 in warmup
+    if any(not torch.equal(p, b) for p, b in zip(params, before)):
+        raise AssertionError("a parameter moved in the first step, at LR 0")
+    run(TRAIN_WARMUP - 1)
+    warmup_s = time.perf_counter() - t0
+    if all(torch.equal(p, b) for p, b in zip(params, before)):
+        raise AssertionError("no parameter moved after a step with a nonzero LR")
+    del before
+    ema_before = {k: v.clone() for k, v in bundle.state.ema.items()}
+
+    fa.flash_forward.launches = 0
+    fa.flash_backward.dkdv_launches = fa.flash_backward.dq_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    run(TRAIN_STEPS, log_fn=lambda step, m: logs.append(m))
+    launches = {"flash_fwd": fa.flash_forward.launches,
+                "flash_bwd_dkdv": fa.flash_backward.dkdv_launches,
+                "flash_bwd_dq": fa.flash_backward.dq_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = TRAIN_STEPS * cfg["model"]["core"]["n_layers"]
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"kernel launches on the train path {launches}, expected "
+                             f"{expected} each")
+    if len(logs) != TRAIN_STEPS:
+        raise AssertionError(f"{len(logs)} logged steps, expected {TRAIN_STEPS}")
+    for m in logs:
+        if not all(np.isfinite([m["loss"], m["grad_norm"]])):
+            raise AssertionError(f"non-finite loss or grad_norm: {m}")
+    if all(torch.equal(v, ema_before[k]) for k, v in bundle.state.ema.items()):
+        raise AssertionError("the EMA shadow did not move")
+    del ema_before
+    step_s = [1.0 / m["steps_per_sec"] for m in logs]
+    median_s = statistics.median(step_s)
+
+    # one full-width gradient of the train loss, eval mode (no dropout), fixed
+    # batch and draws, with the kernels and with dense attention
+    model = bundle.model.eval()
+    sc = bundle.step_config
+    draws = TT.draw_step_randomness(torch.Generator(device="cuda").manual_seed(7), sc)
+    dev_batch = TT.batch_to_device(batch, bundle.device)
+    grads = {}
+    for use_kernel in (True, False):
+        loss, _ = TT.train_loss(model, dataclasses.replace(sc, use_kernel=use_kernel),
+                                bundle.abar_v, bundle.abar_a, dev_batch, 0.0, draws)
+        named = [(n, p) for n, p in model.named_parameters()]
+        gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        grads[use_kernel] = {n: g for (n, _), g in zip(named, gs) if g is not None}
+    model.train()
+    qkv = [n for n in grads[False] if n.endswith("attn.qkv.weight")]
+    qkv_rel = max(float((grads[True][n] - grads[False][n]).abs().max())
+                  / float(grads[False][n].abs().max()) for n in qkv)
+    norms = {k: float(TT.global_norm(list(g.values()))) for k, g in grads.items()}
+    norm_rel = abs(norms[True] - norms[False]) / norms[False]
+    if len(qkv) != cfg["model"]["core"]["n_layers"] or max(qkv_rel, norm_rel) > GRAD_REL_TOL:
+        raise AssertionError(f"train grads with the kernels vs dense: qkv {qkv_rel}, "
+                             f"norm {norm_rel} (tol {GRAD_REL_TOL}, {len(qkv)} qkv grads)")
+    del grads
+
+    emit({"phase": "train", "config": "mvp", "clips": TRAIN_CLIPS,
+          "compute_dtype": "bfloat16", "setup_s": setup_s, "warmup_steps": TRAIN_WARMUP,
+          "warmup_s": warmup_s, "step_s": step_s, "median_step_s": median_s,
+          "train_clips_per_s": TRAIN_CLIPS / median_s,
+          "first_loss": logs[0]["loss"], "last_loss": logs[-1]["loss"],
+          "grad_norms": [m["grad_norm"] for m in logs], "launches": launches,
+          "launches_expected": expected,
+          "grad_check": {"qkv_weight_rel_err": qkv_rel, "grad_norm_rel_err": norm_rel,
+                         "grad_norm_kernel": norms[True], "grad_norm_dense": norms[False],
+                         "rel_tol": GRAD_REL_TOL},
+          "peak_mem_gb": peak_gb})
+    return launches
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -239,24 +421,45 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    lib = fa.build()
-    fa._library()
-    log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-    emit({"phase": "build", "library": lib.name, "seconds": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    names = list(fa.SOURCES)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+        libs = dict(zip(names, pool.map(fa.build, names)))
+    built = {}
+    for name, lib in libs.items():
+        fa._library(name)
+        log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
+        built[name] = {"library": lib.name, "ptxas": [
+            ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": built})
 
     cases = kernel_phase(fa)
-    launches = v2a_phase(fa)
+    v2a_launches = v2a_phase(fa)
+    train_launches = train_phase(fa)
 
     mvp = cases[("mvp", "bfloat16")]
-    emit({"kernels": [{
+    kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "multimodal_diffusion_torch/csrc/flash_fwd.cu",
         "replaces": "multimodal_diffusion_tpu/ops/flash_attention.py:49",
-        "launches": launches, "max_abs_err": mvp["max_abs_err_out"],
-        "ms": mvp["ms"], "plain_ms": mvp["plain_ms"], "bound_ms": mvp["bound_ms"],
-        "bound_by": mvp["bound_by"], "library_ms": mvp["library_ms"]}]})
+        "launches": v2a_launches + train_launches["flash_fwd"],
+        "launches_by_path": {"v2a": v2a_launches, "train": train_launches["flash_fwd"]},
+        "max_abs_err": mvp["max_abs_err_out"], "ms": mvp["ms"], "plain_ms": mvp["plain_ms"],
+        "bound_ms": mvp["bound_ms"], "bound_by": mvp["bound_by"],
+        "library_ms": mvp["library_ms"]}]
+    for kernel, line in (("dkdv", 205), ("dq", 276)):
+        rec = cases[("mvp_train", "bfloat16", kernel)]
+        name = f"flash_bwd_{kernel}"
+        # plain_ms and library_ms time the pair (the plain version and SDPA's
+        # backward compute dq, dk and dv together)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_diffusion_torch/csrc/flash_bwd.cu",
+            "replaces": f"multimodal_diffusion_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name], "launches_by_path": {"train": train_launches[name]},
+            "max_abs_err": max(rec["max_abs_err"].values()), "ms": rec["ms"],
+            "plain_ms": rec["plain_pair_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_pair_ms"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,21 +6,23 @@
       --frames path/to/frames_dir --out-audio out.wav
 
 Runs on CUDA unless ``--device cpu`` (the entry points raise when CUDA is
-asked for and absent). Weights are a seeded random init or a JAX params tree
-carried across by ``utils/convert.py``; restoring an orbax checkpoint is not
-ported yet.
+asked for and absent). Weights come from the port's own checkpoint at
+``paths.ckpt_path`` (``train/checkpoint.py``), from a JAX params tree carried
+across by ``utils/convert.py``, or from a seeded random init; restoring an
+orbax checkpoint of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
+from ..train.checkpoint import CheckpointManager, params_only_tree
 from ..utils.convert import load_jax_params
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
 from .ddim import sampler_from_config
@@ -28,19 +30,43 @@ from .ddim import sampler_from_config
 Device = Union[str, torch.device]
 
 
-def _checkpoint_dir(cfg: Dict) -> Optional[Path]:
+def _checkpoint_dir(cfg: Dict) -> Tuple[Optional[Path], Optional[int]]:
+    """paths.ckpt_path -> (checkpoint directory, step or None for the
+    latest)."""
     paths = cfg.get("paths", {}) or {}
     ckpt = paths.get("ckpt_path") or paths.get("ckpt")
     if not ckpt:
-        return None
+        return None, None
     ckpt = Path(str(ckpt))
-    return ckpt.parent if ckpt.name == "latest" or ckpt.name.isdigit() else ckpt
+    if ckpt.name == "latest":
+        return ckpt.parent, None
+    if ckpt.name.isdigit():
+        return ckpt.parent, int(ckpt.name)
+    return ckpt, None
+
+
+def _restore(ckpt_dir: Path, step: Optional[int], use_ema: bool) -> Optional[Dict]:
+    """The state_dict of the port's checkpoint in `ckpt_dir`, or None when
+    the directory holds no checkpoint."""
+    mgr = CheckpointManager(ckpt_dir)
+    step = step if step is not None else mgr.latest_step()
+    if step is None:
+        return None
+    if not (mgr.dir / str(step) / "params.pt").exists():
+        raise NotImplementedError(
+            f"{mgr.dir / str(step)} is not a checkpoint of this port (restoring the "
+            f"JAX package's orbax checkpoints is not ported yet); convert its params "
+            f"tree and pass params=")
+    print(f"[ckpt] restored step {step} from {mgr.dir} (ema={use_ema})")
+    return params_only_tree(mgr.restore(step), use_ema=use_ema)
 
 
 def build_components(cfg: Dict, params: Optional[Mapping] = None,
-                     device: Device = "cuda") -> AVDiffusionModel:
+                     device: Device = "cuda", use_ema: bool = False) -> AVDiffusionModel:
     """The model in eval mode on `device`: weights from a JAX params tree
-    when given, else a random init seeded by cfg['seed'].
+    when given, else from the port's checkpoint at paths.ckpt_path (with the
+    EMA shadow swapped in when `use_ema`), else a random init seeded by
+    cfg['seed'].
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions
@@ -53,12 +79,12 @@ def build_components(cfg: Dict, params: Optional[Mapping] = None,
         cfg, dtype=compute_dtype_from_config(cfg)))
     if params is not None:
         load_jax_params(model, params)
+        return model.to(dev).eval()
+    ckpt_dir, step = _checkpoint_dir(cfg)
+    state = _restore(ckpt_dir, step, use_ema) if ckpt_dir and ckpt_dir.exists() else None
+    if state is not None:
+        model.load_state_dict(state, strict=True)
     else:
-        ckpt_dir = _checkpoint_dir(cfg)
-        if ckpt_dir is not None and ckpt_dir.exists():
-            raise NotImplementedError(
-                f"restoring the checkpoint at {ckpt_dir} is not ported yet; "
-                f"convert its params tree and pass params=")
         print("[info] no checkpoint; sampling with random weights.")
         init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))
     return model.to(dev).eval()

@@ -1,9 +1,13 @@
 """AVDiffusionModel — the joint audio<->video latent diffusion model
-(counterpart of the JAX ``models/diffusion.py``), eval-mode forward:
+(counterpart of the JAX ``models/diffusion.py``):
 
     latents --tokenize--> raw tokens --adapters--> width-d tokens
       (+ modality embedding, + positional embeddings, + timestep embedding)
       --[cfg keep-mask]--> MMDiT core --> per-modality noise heads --> eps
+
+``denoise_tokens``/``denoise_latents`` serve sampling; ``forward`` is the
+training pass (encode -> q_sample -> denoise, plus the token-space targets).
+Dropout follows ``train()``/``eval()``.
 
 Submodule names follow the JAX parameter tree {vid_vae, aud_codec, adapt_v,
 adapt_a, embed, t_embed, core, head}, so ``utils/convert.py`` maps a JAX
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops import tokenize as tk
+from ..ops.schedule import prediction_target, q_sample
 from .adapters import (
     Dense,
     LinearAdapter,
@@ -45,6 +50,7 @@ class AVDiffusionConfig:
     codec: AudioCodecConfig = dataclasses.field(default_factory=AudioCodecConfig)
     core: MMDiTConfig = dataclasses.field(default_factory=MMDiTConfig)
     head_hidden: int = 512
+    head_dropout: float = 0.1
     head_activation: str = "gelu"
     head_num_layers: int = 2
     out_dim_v: int = 256
@@ -53,7 +59,14 @@ class AVDiffusionConfig:
     use_modality_embed: bool = True
     posenc_video: str = "learned_3d"  # "learned_3d" | "sin" | "none"
     posenc_audio: str = "learned_1d"  # "learned_1d" | "sin" | "none"
+    # prediction parameterization per modality: "eps" | "x0" | "v"
+    # (config keys diffusion.{video,audio}.param)
+    param_v: str = "eps"
+    param_a: str = "eps"
     latent_rmsnorm: bool = False
+    # model.encoder_stopgrad: stop the diffusion loss's gradient at the
+    # encoder outputs (the encoders then train on reconstruction only)
+    encoder_stopgrad: bool = False
     dtype: Any = torch.float32
 
     @classmethod
@@ -82,6 +95,7 @@ class AVDiffusionConfig:
             core=MMDiTConfig.from_dict(cfg["model"]["core"], dtype=dtype),
             head_hidden=int(heads["video"]["hidden_dim"]),
             head_num_layers=int(heads["video"].get("num_layers", 2)),
+            head_dropout=float(cfg["model"]["core"].get("dropout", 0.1)),
             head_activation=heads["video"].get("activation", "gelu"),
             out_dim_v=int(heads["video"]["out_dim"]),
             out_dim_a=int(heads["audio"]["out_dim"]),
@@ -89,7 +103,10 @@ class AVDiffusionConfig:
             use_modality_embed=bool(emb.get("use_modality_embed", True)),
             posenc_video=str(posenc.get("video", "learned_3d")),
             posenc_audio=str(posenc.get("audio", "learned_1d")),
+            param_v=str(cfg["diffusion"]["video"].get("param", "eps")),
+            param_a=str(cfg["diffusion"]["audio"].get("param", "eps")),
             latent_rmsnorm=bool(cfg["model"].get("latent_rmsnorm", False)),
+            encoder_stopgrad=bool(cfg["model"].get("encoder_stopgrad", False)),
             dtype=dtype,
         )
 
@@ -154,7 +171,8 @@ class AVDiffusionModel(nn.Module):
             hidden_dim=c.head_hidden,
             num_shared_layers=c.head_num_layers,
             activation=c.head_activation,
-            dtype=c.dtype)
+            dtype=c.dtype,
+            dropout=c.head_dropout)
 
     # ------------------ codec passthroughs ------------------
 
@@ -251,6 +269,38 @@ class AVDiffusionModel(nn.Module):
             "h_v": out["h_v"],
             "h_a": out["h_a"],
         }
+
+    def forward(self, video: torch.Tensor, audio: torch.Tensor,
+                t_v: torch.Tensor, t_a: torch.Tensor,
+                noise_v: torch.Tensor, noise_a: torch.Tensor,
+                alpha_bar_v: torch.Tensor, alpha_bar_a: torch.Tensor,
+                keep_v: Optional[torch.Tensor] = None,
+                keep_a: Optional[torch.Tensor] = None,
+                with_recon: bool = False,
+                use_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """End-to-end training forward: encode -> q_sample (with the pre-drawn
+        latent noise) -> denoise. Returns the token-space predictions
+        {'eps_v', 'eps_a'}, the contextualized features {'h_v', 'h_a'} and the
+        token-space targets {'eps_true_v', 'eps_true_a'} under
+        cfg.param_{v,a}. Dropout is active under ``train()``."""
+        if with_recon:
+            raise NotImplementedError(
+                "with_recon (the reconstruction decode) is not ported yet "
+                "(the specificity8 slice)")
+        z_v0 = self.encode_video(video)
+        z_a0 = self.encode_audio(audio)
+        if self.cfg.encoder_stopgrad:
+            z_v0, z_a0 = z_v0.detach(), z_a0.detach()
+        z_vt, eps_v = q_sample(z_v0, t_v, alpha_bar_v, noise_v)
+        z_at, eps_a = q_sample(z_a0, t_a, alpha_bar_a, noise_a)
+        out = self.denoise_tokens(self.tokenize_video(z_vt), self.tokenize_audio(z_at),
+                                  t_v, t_a, self.video_grid(z_vt.shape), keep_v, keep_a,
+                                  use_kernel)
+        out["eps_true_v"] = self.tokenize_video(
+            prediction_target(z_v0, eps_v, t_v, alpha_bar_v, self.cfg.param_v))
+        out["eps_true_a"] = self.tokenize_audio(
+            prediction_target(z_a0, eps_a, t_a, alpha_bar_a, self.cfg.param_a))
+        return out
 
 
 @torch.no_grad()

@@ -1,9 +1,10 @@
 """Epsilon-prediction heads (counterpart of the JAX ``models/heads.py``).
 
 MultiModalNoiseHead: per-modality input projection -> shared trunk of
-(Dense -> LayerNorm(eps 1e-5) -> act) blocks -> per-modality output Dense
-(the joint model's one modality-specific layer, so no per-modality trunk).
-Eval mode: no dropout.
+(Dense -> LayerNorm(eps 1e-5) -> act -> Dropout) blocks -> per-modality
+output Dense (the joint model's one modality-specific layer, so no
+per-modality trunk). Dropout is on under ``train()`` and draws from the
+generator that ``mmdit.set_dropout_generator`` hands it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .adapters import Dense
-from .mmdit import LayerNorm
+from .mmdit import Dropout, LayerNorm
 
 _ACTS = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -32,17 +33,18 @@ def _act(name: str):
 
 
 class TrunkBlock(nn.Module):
-    """Dense -> LayerNorm -> act."""
+    """Dense -> LayerNorm -> act -> Dropout."""
 
     def __init__(self, d_in: int, width: int, activation: str,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dense = Dense(d_in, width, dtype)
         self.norm = LayerNorm(width, dtype=dtype)
         self.act = _act(activation)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.norm(self.dense(x)))
+        return self.drop(self.act(self.norm(self.dense(x))))
 
 
 class MultiModalNoiseHead(nn.Module):
@@ -51,13 +53,14 @@ class MultiModalNoiseHead(nn.Module):
 
     def __init__(self, input_dims: Mapping[str, int], output_dims: Mapping[str, int],
                  hidden_dim: int = 512, num_shared_layers: int = 2,
-                 activation: str = "gelu", dtype: torch.dtype = torch.float32):
+                 activation: str = "gelu", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.modalities = tuple(output_dims)
         for m in self.modalities:
             self.add_module(f"input_proj_{m}", Dense(input_dims[m], hidden_dim, dtype))
         self.shared = nn.ModuleList(
-            TrunkBlock(hidden_dim, hidden_dim, activation, dtype)
+            TrunkBlock(hidden_dim, hidden_dim, activation, dtype, dropout)
             for _ in range(max(0, num_shared_layers)))
         for m in self.modalities:
             self.add_module(f"out_proj_{m}", Dense(hidden_dim, int(output_dims[m]), dtype))

@@ -3,8 +3,12 @@
 
 A pre-norm transformer encoder over the concatenated [video; audio] token
 sequence. Parameters are fp32; compute runs in ``cfg.dtype`` (bf16 for mvp)
-with norm statistics and attention softmax in fp32. Eval-mode (deterministic)
-forward only: dropout is never applied.
+with norm statistics and attention softmax in fp32.
+
+Dropout (residual, MLP, token and attention-probability dropout) is on under
+``module.train()`` and off under ``eval()``. It draws only from an explicit
+``torch.Generator`` that ``set_dropout_generator`` hands to every dropout
+module; a training-mode dropout without one raises (no global RNG).
 """
 
 from __future__ import annotations
@@ -16,8 +20,49 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import mha_reference, multi_head_attention, padding_bias
 from .adapters import Dense
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, flax semantics: keep with probability 1 - rate and
+    scale the kept values by 1 / (1 - rate). Identity in eval mode or at
+    rate 0. Draws come from ``self.generator`` (see set_dropout_generator)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def _uniform(self, shape, device) -> torch.Tensor:
+        if self.generator is None:
+            raise RuntimeError("dropout in training mode needs a generator: "
+                               "call set_dropout_generator(model, generator)")
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = self._uniform(x.shape, x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class TokenDropout(Dropout):
+    """Zero whole tokens of [B, N, d] with probability ``rate`` (no rescale),
+    as the JAX core's stochastic token dropout."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = self._uniform(x.shape[:2], x.device) > self.rate
+        return x * keep.to(x.dtype)[..., None]
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Hand `generator` to every dropout module of `model`."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class RMSNorm(nn.Module):
@@ -77,44 +122,61 @@ def rotary_embed(q: torch.Tensor, k: torch.Tensor, max_period: float = 10_000.0)
 
 class Attention(nn.Module):
     """Self-attention with a fused qkv projection (biases), optional RoPE, and
-    an output projection. Attention itself goes through
-    ``multi_head_attention``: the CUDA kernel on the card."""
+    an output projection, then residual dropout. Attention itself goes through
+    ``multi_head_attention``: the CUDA kernels on the card, forward and
+    backward. A training pass with ``attn_dropout > 0`` takes the dense
+    einsum body with probability dropout instead, as the JAX package does
+    (the kernels draw no random numbers)."""
 
     def __init__(self, d: int, n_heads: int, rope: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_dropout: float = 0.0,
+                 resid_dropout: float = 0.0):
         super().__init__()
         if d % n_heads:
             raise ValueError(f"d_model {d} not divisible by n_heads {n_heads}")
         self.n_heads, self.rope = n_heads, rope
         self.qkv = Dense(d, 3 * d, dtype)
         self.out = Dense(d, d, dtype)
+        self.attn_drop = Dropout(attn_dropout)
+        self.resid_drop = Dropout(resid_dropout)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
         B, N, d = x.shape
         H = self.n_heads
         qkv = self.qkv(x).reshape(B, N, 3, H, d // H)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, N, Dh]
+        # head views of the one projection; unbind's backward stacks the
+        # three grads into one qkv-shaped buffer
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, H, N, Dh]
         if self.rope:
             q, k = rotary_embed(q, k)
-        out = multi_head_attention(q, k, v, key_padding_mask=key_padding_mask,
-                                   use_kernel=use_kernel)
-        return self.out(out.transpose(1, 2).reshape(B, N, d))
+        if self.training and self.attn_drop.rate > 0.0:
+            # the JAX package's training body: no all-masked-row zeroing
+            bias = None if key_padding_mask is None else padding_bias(key_padding_mask)
+            out = mha_reference(q, k, v, bias, probs_dropout=self.attn_drop)
+        else:
+            out = multi_head_attention(q, k, v, key_padding_mask=key_padding_mask,
+                                       use_kernel=use_kernel)
+        return self.resid_drop(self.out(out.transpose(1, 2).reshape(B, N, d)))
 
 
 class MLP(nn.Module):
-    """fc1 -> GELU (erf, or tanh when gelu_exact is False) -> fc2."""
+    """fc1 -> GELU (erf, or tanh when gelu_exact is False) -> dropout -> fc2
+    -> dropout."""
 
     def __init__(self, d: int, mlp_ratio: float = 4.0, gelu_exact: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         hidden = int(d * mlp_ratio)
         self.fc1 = Dense(d, hidden, dtype)
         self.fc2 = Dense(hidden, d, dtype)
         self.approximate = "none" if gelu_exact else "tanh"
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = self.drop1(F.gelu(self.fc1(x), approximate=self.approximate))
+        return self.drop2(self.fc2(h))
 
 
 class Block(nn.Module):
@@ -122,12 +184,13 @@ class Block(nn.Module):
 
     def __init__(self, d: int, n_heads: int, mlp_ratio: float, norm: str,
                  rope: bool, gelu_exact: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 attn_dropout: float = 0.0):
         super().__init__()
         self.norm1 = make_norm(norm, d, dtype)
-        self.attn = Attention(d, n_heads, rope, dtype)
+        self.attn = Attention(d, n_heads, rope, dtype, attn_dropout, dropout)
         self.norm2 = make_norm(norm, d, dtype)
-        self.mlp = MLP(d, mlp_ratio, gelu_exact, dtype)
+        self.mlp = MLP(d, mlp_ratio, gelu_exact, dtype, dropout)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
@@ -137,13 +200,16 @@ class Block(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class MMDiTConfig:
-    """The JAX MMDiTConfig's fields that an eval-mode forward reads (dropout
-    keys of the config tree are ignored: eval mode)."""
+    """The JAX MMDiTConfig's fields that the port reads (the parallelism
+    fields are not ported)."""
 
     d_model: int = 1024
     n_layers: int = 16
     n_heads: int = 16
     mlp_ratio: float = 4.0
+    dropout: float = 0.1
+    attn_dropout: float = 0.0
+    token_dropout: float = 0.0
     norm: str = "rmsnorm"
     rope: bool = False
     gelu_exact: bool = True
@@ -172,9 +238,10 @@ class MMDiT(nn.Module):
             raise NotImplementedError(
                 f"model.core.quant={cfg.quant!r} is not ported yet (int8 comes later)")
         self.cfg = cfg
+        self.token_drop = TokenDropout(cfg.token_dropout)
         self.blocks = nn.ModuleList(
             Block(cfg.d_model, cfg.n_heads, cfg.mlp_ratio, cfg.norm, cfg.rope,
-                  cfg.gelu_exact, cfg.dtype)
+                  cfg.gelu_exact, cfg.dtype, cfg.dropout, cfg.attn_dropout)
             for _ in range(cfg.n_layers))
         self.norm = make_norm(cfg.norm, cfg.d_model, cfg.dtype)
 
@@ -183,7 +250,7 @@ class MMDiT(nn.Module):
         cfg = self.cfg
         if x.shape[-1] != cfg.d_model:
             raise ValueError(f"expected width {cfg.d_model}, got {x.shape[-1]}")
-        x = x.to(cfg.dtype)
+        x = self.token_drop(x.to(cfg.dtype))
         B, N, _ = x.shape
         pad_n = (-N) % max(1, cfg.seq_multiple)
         if pad_n:

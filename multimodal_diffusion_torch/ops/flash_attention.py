@@ -1,12 +1,16 @@
-"""Flash-attention forward: the hand-written CUDA kernel, its plain PyTorch
-version, and the wrapper that picks between them by device.
+"""Flash attention: the hand-written CUDA kernels, their plain PyTorch
+versions, the wrappers that pick between them by device, and the
+differentiable ``flash_attention`` over them.
 
-The kernel (``csrc/flash_fwd.cu``) replaces the TPU kernel
-``_flash_fwd_kernel`` of the JAX package's ``ops/flash_attention.py``. It is
-built with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed in
-.gitignore) and bound with ctypes. ``flash_forward`` runs the plain version
-only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises.
+  * ``csrc/flash_fwd.cu`` replaces the TPU kernel ``_flash_fwd_kernel`` of
+    the JAX package's ``ops/flash_attention.py`` (``flash_forward``);
+  * ``csrc/flash_bwd.cu`` replaces ``_flash_bwd_dkdv_kernel`` and
+    ``_flash_bwd_dq_kernel`` (``flash_backward``, two launches per call).
+
+Each source is built with ``nvcc`` for ``sm_90a`` at first use into
+``_build/`` (listed in .gitignore), keyed by its content hash, and bound
+with ctypes. A wrapper runs the plain version only for a tensor on the CPU;
+for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "flash_fwd.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("flash_fwd", "flash_bwd")}
 BUILD_DIR = _PKG / "_build"
 
 
@@ -78,23 +82,25 @@ def _nvcc() -> Optional[str]:
     return str(default) if default.exists() else None
 
 
-def build() -> Path:
-    """Compile csrc/flash_fwd.cu for sm_90a into BUILD_DIR (once per source
+def build(name: str = "flash_fwd") -> Path:
+    """Compile csrc/<name>.cu for sm_90a into BUILD_DIR (once per source
     content) and return the shared library's path. The compiler's register
-    and shared-memory report is kept beside it as a .log."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_fwd_{tag}.so"
+    and shared-memory report is kept beside it as a .log. Safe to call for
+    several sources at once from threads."""
+    source = SOURCES[name]
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{tag}.so"
     if lib.exists():
         return lib
     nvcc = _nvcc()
     if nvcc is None:
         raise RuntimeError(
-            "nvcc not found: the CUDA flash-attention kernel cannot be built")
+            "nvcc not found: the CUDA flash-attention kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -104,43 +110,55 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _library(name: str = "flash_fwd") -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(name)))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_fwd.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
-                              + [ctypes.c_float, ptr])
-    lib.flash_fwd.restype = i32
+    if name == "flash_fwd":
+        lib.flash_fwd.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
+                                  + [ctypes.c_float, ptr])
+        lib.flash_fwd.restype = i32
+    else:
+        # q, k, v, dout, lse, delta, valid, outputs..., device, B, H, N, D,
+        # dtype, strides (int64[21]), scale, stream
+        strides = ctypes.POINTER(i64)
+        lib.flash_bwd_dkdv.argtypes = [ptr] * 9 + [i32] * 6 + [strides, ctypes.c_float, ptr]
+        lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [strides, ctypes.c_float, ptr]
+        lib.flash_bwd_dkdv.restype = lib.flash_bwd_dq.restype = i32
     return lib
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  valid: Optional[torch.Tensor]) -> None:
-    """Raise on anything the kernel does not take."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+                  valid: Optional[torch.Tensor], who: str = "flash_forward",
+                  **more: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take. ``more`` names further
+    [B, H, N, Dh] operands held to q's shape, dtype and device (dout)."""
+    operands = {"q": q, "k": k, "v": v, **more}
+    for name, t in operands.items():
         if not t.is_cuda:
-            raise ValueError(f"flash_forward: {name} is on {t.device}, not CUDA")
+            raise ValueError(f"{who}: {name} is on {t.device}, not CUDA")
         if t.dim() != 4:
-            raise ValueError(f"flash_forward: {name} must be [B, H, N, Dh]")
+            raise ValueError(f"{who}: {name} must be [B, H, N, Dh]")
         if t.stride(-1) != 1:
-            raise ValueError(f"flash_forward: {name} needs unit stride along Dh")
-    if not (q.shape == k.shape == v.shape):
-        raise ValueError(f"flash_forward: shapes differ {q.shape} {k.shape} {v.shape}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_forward: dtypes must match and be fp32 or bf16, "
-                         f"got {q.dtype} {k.dtype} {v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_forward: q, k, v on different devices")
+            raise ValueError(f"{who}: {name} needs unit stride along Dh")
+    if any(t.shape != q.shape for t in operands.values()):
+        raise ValueError(f"{who}: shapes differ "
+                         f"{[tuple(t.shape) for t in operands.values()]}")
+    if any(t.dtype != q.dtype for t in operands.values()) or q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{who}: dtypes must match and be fp32 or bf16, "
+                         f"got {[t.dtype for t in operands.values()]}")
+    if any(t.device != q.device for t in operands.values()):
+        raise ValueError(f"{who}: operands on different devices")
     B, H, N, Dh = q.shape
     if Dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_forward: Dh={Dh} not in {SUPPORTED_HEAD_DIMS}")
+        raise ValueError(f"{who}: Dh={Dh} not in {SUPPORTED_HEAD_DIMS}")
     if N == 0 or B * H == 0:
-        raise ValueError("flash_forward: empty input")
+        raise ValueError(f"{who}: empty input")
     if valid is not None:
         if valid.dtype != torch.bool or tuple(valid.shape) != (B, N):
-            raise ValueError(f"flash_forward: valid must be bool [B, N]=({B}, {N}), "
+            raise ValueError(f"{who}: valid must be bool [B, N]=({B}, {N}), "
                              f"got {valid.dtype} {tuple(valid.shape)}")
         if valid.device != q.device or not valid.is_contiguous():
-            raise ValueError("flash_forward: valid must be contiguous on q's device")
+            raise ValueError(f"{who}: valid must be contiguous on q's device")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,7 +173,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, valid)
     _check_inputs(q, k, v, valid)
-    lib = _library()
+    lib = _library("flash_fwd")
     B, H, N, Dh = q.shape
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
@@ -173,3 +191,139 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_forward.launches = 0
+
+
+def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                             valid: Optional[torch.Tensor] = None,
+                             delta: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain blockwise PyTorch version of the two backward kernels: over
+    128-key tiles, recompute P = where(ok, exp(S - lse), 0), then
+    dV = P^T dO (P rounded to dout.dtype), dP = dO V^T,
+    dS = P * (dP - D) rounded to q.dtype, dK = scale * dS^T Q and
+    dQ = scale * dS K, accumulating in fp32.
+
+    q, k, v, out, dout: [B, H, N, Dh]; lse: [B, H, N] fp32 (the forward's);
+    valid: optional [B, N] bool, True = attendable key; delta: optional
+    [B, H, N] fp32 rowsum(dout * out), computed from out and dout when not
+    given. Returns (dq, dk, dv) in q.dtype."""
+    B, H, N, Dh = q.shape
+    scale = 1.0 / (Dh ** 0.5)
+    qf, dof = q.float(), dout.float()
+    if delta is None:
+        delta = (dof * out.float()).sum(dim=-1)
+    dq = torch.zeros((B, H, N, Dh), dtype=torch.float32, device=q.device)
+    dk, dv = [], []
+    for lo in range(0, N, REFERENCE_BLOCK_K):
+        hi = min(lo + REFERENCE_BLOCK_K, N)
+        kb, vb = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[..., None])
+        if valid is not None:
+            # a select, not a product: exp(s - lse) is inf on a row whose
+            # keys are all masked (lse = -1e30)
+            p = torch.where(valid[:, None, None, lo:hi], p, 0.0)
+        dv.append(torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), dof))
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+        dk.append(torch.matmul(ds.transpose(-1, -2), qf) * scale)
+        dq += torch.matmul(ds, kb)
+    return ((dq * scale).to(q.dtype), torch.cat(dk, dim=2).to(q.dtype),
+            torch.cat(dv, dim=2).to(q.dtype))
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None,
+                   delta: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of attention with respect to q, k, v: (dq, dk, dv), each
+    [B, H, N, Dh] in q.dtype.
+
+    ``delta`` = rowsum(dout * out) [B, H, N] fp32 is computed here, outside
+    the kernels, when not given; ``lse`` [B, H, N] fp32 is the forward's. Both
+    are inputs of the kernels, which never recompute them (a ring attention
+    hands in global ones). CPU tensors take ``flash_backward_reference``. CUDA
+    tensors launch the dK/dV kernel, then the dQ kernel, on the current
+    stream, or raise (no fallback). The three grads are [B, H, N, Dh] views of
+    one [B, N, 3, H, Dh] buffer, the layout of the fused qkv projection."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, out, lse, dout, valid, delta)
+    _check_inputs(q, k, v, valid, "flash_backward", dout=dout)
+    B, H, N, Dh = q.shape
+    if delta is None:
+        delta = (dout.float() * out.float()).sum(dim=-1)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, N)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_backward: {name} must be contiguous fp32 "
+                             f"[B, H, N]=({B}, {H}, {N}) on q's device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    grads = torch.empty((B, N, 3, H, Dh), dtype=q.dtype, device=q.device)
+    for kernel in ("dkdv", "dq"):
+        launch_backward_kernel(kernel, q, k, v, dout, lse, delta, valid, grads)
+    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    return dq, dk, dv
+
+
+def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                           valid: Optional[torch.Tensor], grads: torch.Tensor) -> None:
+    """Launch one backward kernel, "dkdv" or "dq", on the current stream and
+    count the launch (``flash_backward.dkdv_launches``/``dq_launches``). It
+    writes its grads into `grads` [B, N, 3, H, Dh] (q, k, v along axis 2).
+    The operands are those ``flash_backward`` checked; chip_smoke.py calls
+    this directly to time each kernel alone."""
+    B, H, N, Dh = q.shape
+    views = [grads[:, :, i].transpose(1, 2) for i in range(3)]
+    strides = (ctypes.c_longlong * 21)(
+        *(s for t in (q, k, v, dout, *views) for s in t.stride()[:3]))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), None if valid is None else valid.data_ptr())
+    outs = ((views[1].data_ptr(), views[2].data_ptr()) if kernel == "dkdv"
+            else (views[0].data_ptr(),))
+    fn = getattr(_library("flash_bwd"), f"flash_bwd_{kernel}")
+    err = fn(*ins, *outs, q.device.index or 0, B, H, N, Dh, _DTYPE_CODE[q.dtype], strides,
+             1.0 / (Dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_{kernel} launch failed with CUDA error {err}")
+    name = f"{kernel}_launches"
+    setattr(flash_backward, name, getattr(flash_backward, name) + 1)
+
+
+flash_backward.dkdv_launches = 0
+flash_backward.dq_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_forward with flash_backward as its gradient (the counterpart of
+    the JAX package's custom_vjp pair ``_flash_plain``/``_flash_masked``).
+    Saves q, k, v, out, lse and valid."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid):
+        out, lse = flash_forward(q, k, v, valid)
+        ctx.save_for_backward(q, k, v, out, lse, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, valid = ctx.saved_tensors
+        if dout.stride(-1) != 1:  # e.g. an expanded (stride 0) gradient
+            dout = dout.contiguous()
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, valid)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable attention [B, H, N, Dh] x3 -> [B, H, N, Dh] through the
+    kernels (their plain versions on the CPU). key_padding_mask: optional
+    [B, N] bool, True = PAD, masked inside the kernels; a row whose keys are
+    all masked gives exact zeros and zero grads. Without autograd (sampling)
+    it is one flash_forward call and saves nothing."""
+    valid = None if key_padding_mask is None else ~key_padding_mask
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, valid)
+    return flash_forward(q, k, v, valid)[0]

@@ -76,6 +76,36 @@ def _bcast_gather(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tens
     return v.reshape(v.shape + (1,) * (ndim - v.ndim))
 
 
+def q_sample(x0: torch.Tensor, t: torch.Tensor, alpha_bar: torch.Tensor,
+             eps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_t = sqrt(a_bar_t) x0 + sqrt(1 - a_bar_t) eps; returns (x_t, eps).
+
+    The noise is passed in (drawn by the caller from its generator). The
+    math runs in fp32 and both results are cast back to x0.dtype, so bf16
+    latents still see fp32-accurate schedule coefficients."""
+    a_bar_t = _bcast_gather(alpha_bar, t, x0.ndim)
+    x_t = (torch.sqrt(a_bar_t) * x0.to(torch.float32)
+           + torch.sqrt(torch.clamp(1.0 - a_bar_t, min=0.0)) * eps.to(torch.float32))
+    return x_t.to(x0.dtype), eps.to(x0.dtype)
+
+
+def prediction_target(x0: torch.Tensor, eps: torch.Tensor, t: torch.Tensor,
+                      alpha_bar: torch.Tensor, param: str = "eps") -> torch.Tensor:
+    """The regression target for a model predicting under `param`:
+    "eps" -> eps, "x0" -> x0, "v" -> sqrt(a_bar) eps - sqrt(1-a_bar) x0.
+    Computed in fp32, returned in x0.dtype."""
+    if param == "eps":
+        return eps
+    if param == "x0":
+        return x0
+    if param == "v":
+        a_bar_t = _bcast_gather(alpha_bar, t, x0.ndim)
+        v = (torch.sqrt(a_bar_t) * eps.to(torch.float32)
+             - torch.sqrt(torch.clamp(1.0 - a_bar_t, min=0.0)) * x0.to(torch.float32))
+        return v.to(x0.dtype)
+    raise ValueError(f"param must be 'eps'|'x0'|'v', got {param!r}")
+
+
 def to_x0_pred(x_t: torch.Tensor, pred: torch.Tensor, a_t: torch.Tensor,
                param: str = "eps") -> torch.Tensor:
     """Model prediction under `param` ('eps'|'x0'|'v') -> denoised estimate x0."""

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
-card only (marker `gpu`; every test skips without a card). Imports no JAX,
-so it runs where only the port is installed:
+"""The port's CUDA kernels (flash forward, flash backward dK/dV and dQ)
+against their plain PyTorch versions, on a CUDA card only (marker `gpu`;
+every test skips without a card). Imports no JAX, so it runs where only the
+port is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -86,3 +87,94 @@ def test_flash_fwd_rejects_what_it_does_not_take(cuda):
     q, k, v, _ = _inputs(cuda, (1, 1, 16, 32), torch.float16, 0)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         t_fa.flash_forward(q, k, v)
+
+
+# the chip_smoke backward cases: the mvp training shape, the sampling shape,
+# the flagship, t2i with 51 masked keys, a fully masked batch row, and N = 1
+BWD_CASES = [((8, 8, 133, 64), 0), ((16, 8, 133, 64), 0), ((8, 8, 421, 128), 0),
+             ((2, 4, 1152, 128), 51), ((2, 2, 77, 32), 77), ((3, 2, 1, 64), 0)]
+# max |kernel - plain| / max(1, max |plain|): fp32 sums in another order
+# (1e-4); bf16 P and dS are rounded to bf16 on both paths, and a different
+# fp32 sum order can flip one rounding by an ulp (2^-8), so 2e-2
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n_masked", BWD_CASES)
+def test_flash_bwd_matches_reference(cuda, shape, n_masked, dtype):
+    q, k, v, valid = _inputs(cuda, shape, dtype, n_masked, seed=2)
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    dout = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda).to(dtype)
+    before = (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches)
+    grads = t_fa.flash_backward(q, k, v, out, lse, dout, valid)
+    assert (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches) == (
+        before[0] + 1, before[1] + 1)
+    refs = t_fa.flash_backward_reference(q, k, v, out, lse, dout, valid)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.shape == shape and g.dtype == dtype
+        err = _rel_err(g, r)
+        assert err <= BWD_TOL[dtype], f"{name}: {err}"
+        if n_masked == shape[2]:
+            assert bool((g[0] == 0).all()), f"{name} of the fully masked row is not 0"
+
+
+@pytest.mark.gpu
+def test_flash_bwd_takes_strided_operands(cuda):
+    """q, k, v as head views of one fused qkv projection [B, N, 3, H, Dh] and
+    dO as the out projection's backward hands it over: a [B, N, H, Dh]
+    buffer seen as [B, H, N, Dh]."""
+    B, N, H, Dh = 4, 133, 8, 64
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    dout = torch.randn((B, N, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
+    dout = dout.transpose(1, 2)
+    out, lse = t_fa.flash_forward(q, k, v)
+    grads = t_fa.flash_backward(q, k, v, out, lse, dout)
+    qc, kc, vc, dc = (t.contiguous() for t in (q, k, v, dout))
+    refs = t_fa.flash_backward_reference(qc, kc, vc, out.contiguous(), lse, dc)
+    for name, gr, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.gpu
+def test_flash_bwd_rejects_what_it_does_not_take(cuda):
+    q, k, v, _ = _inputs(cuda, (1, 1, 16, 48), torch.float32, 0)
+    lse = torch.zeros((1, 1, 16), device=cuda)
+    with pytest.raises(ValueError, match="Dh=48"):
+        t_fa.flash_backward(q, k, v, q, lse, q)
+    q, k, v, _ = _inputs(cuda, (1, 1, 16, 32), torch.float32, 0)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        t_fa.flash_backward(q, k, v, q, lse, q.half())
+    with pytest.raises(ValueError, match="lse must be"):
+        t_fa.flash_backward(q, k, v, q, lse.double(), q)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_launches_each_kernel_once(cuda):
+    """One forward and one backward of the differentiable op: one launch of
+    each kernel, and grads that agree with autograd through dense
+    attention."""
+    q, k, v, _ = _inputs(cuda, (2, 4, 133, 64), torch.float32, 0, seed=5)
+    kpm = torch.zeros((2, 133), dtype=torch.bool, device=cuda)
+    kpm[1, 100:] = True
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = lambda: (t_fa.flash_forward.launches, t_fa.flash_backward.dkdv_launches,  # noqa: E731
+                      t_fa.flash_backward.dq_launches)
+    before = counts()
+    out = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm)
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert counts() == tuple(c + 1 for c in before)
+    dense = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm, use_kernel=False)
+    refs = torch.autograd.grad(dense, (q, k, v), dout)
+    assert counts() == tuple(c + 1 for c in before)
+    for g, r in zip(grads, refs):
+        assert _rel_err(g, r) <= 1e-4

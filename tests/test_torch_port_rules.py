@@ -1,7 +1,7 @@
 """Rules the port keeps: it imports nothing of JAX or the JAX package, the
 weight converter consumes every JAX leaf exactly once, its built-in config
-is the merged mvp+v2a YAML, and its entry points refuse to run on the CPU
-unless asked to."""
+is the merged mvp+v2a YAML, its entry points refuse to run on the CPU
+unless asked to, and options of later slices raise."""
 
 import ast
 from pathlib import Path
@@ -13,6 +13,7 @@ import torch
 from _torch_parity import jax_model_and_params, shrunk_cfg
 from multimodal_diffusion_torch.infer import sample_clip
 from multimodal_diffusion_torch.models.diffusion import AVDiffusionConfig, AVDiffusionModel
+from multimodal_diffusion_torch.train.trainer import create_trainer
 from multimodal_diffusion_torch.utils import io as tio
 from multimodal_diffusion_torch.utils.convert import jax_params_to_state_dict, torch_key
 from multimodal_diffusion_tpu.utils.io import load_config
@@ -88,6 +89,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample_clip.main(["--config", str(REPO / "configs" / "mvp.yaml"),
                           str(REPO / "configs" / "v2a.yaml"), "--frames", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_trainer(cfg)
 
 
 def test_unported_options_raise():
@@ -100,3 +103,25 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         AVDiffusionModel(AVDiffusionConfig.from_config(
             {**cfg, "video": {**cfg["video"], "arch": "patch"}}))
+    model = AVDiffusionModel(AVDiffusionConfig.from_config(cfg))
+    with pytest.raises(NotImplementedError, match="with_recon"):
+        model(*(None,) * 8, with_recon=True)
+    for key, value in (("recon_loss_weight", 0.5), ("sync_loss_source", "mouth")):
+        with pytest.raises(NotImplementedError):
+            create_trainer({**cfg, "training": {**cfg["training"], key: value}}, device="cpu")
+    with pytest.raises(NotImplementedError):
+        create_trainer({**cfg, "parallel": {"model": 2}}, device="cpu")
+
+
+def test_builtin_config_carries_the_mvp_training_keys(monkeypatch):
+    """chip_smoke.py and tools/profile_train.py train from the built-in
+    mvp+v2a dict: every key the trainer reads is mvp.yaml's (v2a.yaml
+    overlays only sampling, paths, io, streaming and sampler steps)."""
+    mvp = load_config(REPO / "configs" / "mvp.yaml")
+    built = tio.mvp_v2a_config()
+    for key in ("seed", "mixed_precision", "data", "video", "audio", "tokenizer",
+                "embeddings", "model", "training", "parallel"):
+        assert built[key] == mvp[key], key
+    for mod in ("video", "audio"):
+        strip = lambda d: {k: v for k, v in d.items() if k != "sampler_steps"}  # noqa: E731
+        assert strip(built["diffusion"][mod]) == strip(mvp["diffusion"][mod])
