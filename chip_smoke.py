@@ -7,14 +7,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — the card (nvidia-smi name, power limit), torch and CUDA versions;
   2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu and
                csrc/flash_bwd.cu, one nvcc each, started together; their
-               registers and spills;
+               registers and spills, and the bf16 backward kernels' shared
+               memory per block and blocks per SM;
   3. kernel  — the flash-attention forward kernel against its plain PyTorch
                version (out and lse), then the two backward kernels (dK/dV,
                dQ) against theirs (dq, dk, dv), at the mvp sampling and
                training, flagship and t2i shapes, masked and unmasked, bf16
                and fp32 (TF32 off), with each kernel's time, the plain
                version's, SDPA's forward or backward (a yardstick the port
-               never calls) and the least time the card could take;
+               never calls) and the least time the card could take; two
+               backward calls must give bit-identical grads; the backward
+               pair again with the train step's strides (head views of a
+               fused qkv buffer, dO a [B, N, H, Dh] buffer) and, untimed, at
+               the 16-row edges N = 15, 16, 17, 145, masked and unmasked;
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -64,8 +69,12 @@ TOL = {"float32": {"out": 1e-4, "lse": 1e-4}, "bfloat16": {"out": 2e-2, "lse": 1
 # backward kernels vs their plain version: max |diff| / max(1, max |plain|)
 # over dq, dk, dv. fp32 sums in another order; in bf16 both round P and dS
 # to bf16, and another fp32 sum order can flip one rounding by an ulp (2^-8)
-# (the H100 read <= 6.0e-7 in fp32 and <= 1.9e-3 in bf16, see PERF.md)
+# (the H100 read <= 6.0e-7 in fp32 and <= 2.8e-3 in bf16, see PERF.md)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the mvp train step's attention operands, and sequence lengths around the
+# 16-row pieces the tensor-core backward kernels work in
+BWD_STRIDED_SHAPE = (8, 8, 133, 64)
+BWD_EDGE_N = (15, 16, 17, 145)
 V2A_CLIPS, V2A_STEPS = 8, 50
 TRAIN_CLIPS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
 # one full-width train-loss gradient (eval mode, fixed batch and draws) with
@@ -156,18 +165,14 @@ def attention_bwd_bound_ms(kernel: str, shape, dtype_name: str, n_valid_keys: li
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def backward_case(fa, name, shape, dtype, q, k, v, valid, out, lse, n_valid, cycles_per_s):
-    """The two backward kernels at one case: checked against their plain
-    version, then timed alone, beside the plain version and SDPA's backward
-    (torch.autograd.grad of its output with the same dO)."""
+def backward_check(fa, name, q, k, v, valid, out, lse, dout, n_valid):
+    """Both backward kernels against their plain version on the same inputs,
+    and against themselves: a second call must give the same bits."""
     import torch
-    import torch.nn.functional as F
 
-    dname = str(dtype).split(".")[-1]
-    B, H, N, Dh = shape
-    g = torch.Generator(device=q.device).manual_seed(100 + N)
-    dout = torch.randn(shape, generator=g, device=q.device).to(dtype)
+    dname = str(q.dtype).split(".")[-1]
     grads = fa.flash_backward(q, k, v, out, lse, dout, valid)
+    again = fa.flash_backward(q, k, v, out, lse, dout, valid)
     refs = fa.flash_backward_reference(q, k, v, out, lse, dout, valid)
     torch.cuda.synchronize()
     errs = {gname: float((a.float() - b.float()).abs().max()) for gname, a, b in
@@ -177,8 +182,26 @@ def backward_case(fa, name, shape, dtype, q, k, v, valid, out, lse, n_valid, cyc
     if not rel <= BWD_TOL[dname]:
         raise AssertionError(f"{name} {dname}: backward kernels disagree with their plain "
                              f"version: {errs}, relative {rel} (tol {BWD_TOL[dname]})")
+    if not all(bool(torch.isfinite(x.float()).all()) for x in grads):
+        raise AssertionError(f"{name} {dname}: non-finite grads")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{name} {dname}: two backward calls differ")
     if n_valid[0] == 0 and not all(bool((x[0] == 0).all()) for x in grads):
         raise AssertionError(f"{name} {dname}: a fully masked row's grads are not exactly 0")
+    return errs, rel
+
+
+def backward_case(fa, name, q, k, v, valid, out, lse, dout, n_valid, cycles_per_s):
+    """The two backward kernels at one case: checked (backward_check), then
+    timed alone, beside the plain version and SDPA's backward
+    (torch.autograd.grad of its output with the same dO)."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = q.dtype
+    dname = str(dtype).split(".")[-1]
+    shape = B, H, N, Dh = tuple(q.shape)
+    errs, rel = backward_check(fa, name, q, k, v, valid, out, lse, dout, n_valid)
     delta = (dout.float() * out.float()).sum(dim=-1)
     buf = torch.empty((B, N, 3, H, Dh), dtype=dtype, device=q.device)
     ms = {kernel: cuda_median_ms(lambda kernel=kernel: fa.launch_backward_kernel(
@@ -197,12 +220,51 @@ def backward_case(fa, name, shape, dtype, q, k, v, valid, out, lse, n_valid, cyc
         rec = {"phase": "kernel", "kernel": f"flash_bwd_{kernel}", "case": name,
                "shape": list(shape), "dtype": dname, "masked_keys": N * B - sum(n_valid),
                "max_abs_err": errs, "rel_err": rel, "tol": BWD_TOL[dname],
+               "repeat_bit_identical": True,
                "ms": ms[kernel], "pair_ms": ms["dkdv"] + ms["dq"], "plain_pair_ms": plain_ms,
                "library_pair_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_share": bound_ms / ms[kernel]}
         emit(rec)
         recs[kernel] = rec
     return recs
+
+
+def backward_stride_and_edge_cases(fa, cycles_per_s):
+    """The backward pair with the operands the train step hands it (q, k, v
+    head views of one fused qkv buffer [B, N, 3, H, Dh], dO a [B, N, H, Dh]
+    buffer), checked and timed; then, checked only, at the edges of the
+    tensor-core kernels' 16-row pieces, masked and unmasked, bf16 and fp32."""
+    import torch
+
+    dev = torch.device("cuda")
+    B, H, N, Dh = BWD_STRIDED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(50)
+    qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    dout = torch.randn((B, N, H, Dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    out, lse = fa.flash_forward(q, k, v)
+    backward_case(fa, "mvp_train_qkv_strides", q, k, v, None, out, lse, dout, [N] * B,
+                  cycles_per_s)
+
+    for N in BWD_EDGE_N:
+        for n_masked in (0, min(5, N - 1)):
+            for dtype in (torch.bfloat16, torch.float32):
+                shape = (2, 8, N, 64)
+                g = torch.Generator(device=dev).manual_seed(60 + N)
+                q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                                 for _ in range(4))
+                valid, n_valid = None, [N, N]
+                if n_masked:
+                    valid = torch.ones((2, N), dtype=torch.bool, device=dev)
+                    valid[0, N - n_masked:] = False
+                    n_valid[0] = N - n_masked
+                out, lse = fa.flash_forward(q, k, v, valid)
+                name, dname = f"edge_n{N}", str(dtype).split(".")[-1]
+                errs, rel = backward_check(fa, name, q, k, v, valid, out, lse, dout, n_valid)
+                emit({"phase": "kernel", "kernel": "flash_bwd_pair", "case": name,
+                      "shape": list(shape), "dtype": dname, "masked_keys": n_masked,
+                      "max_abs_err": errs, "rel_err": rel, "tol": BWD_TOL[dname],
+                      "repeat_bit_identical": True})
 
 
 def kernel_phase(fa):
@@ -253,9 +315,12 @@ def kernel_phase(fa):
                    "bound_share": bound_ms / ms}
             emit(rec)
             results[(name, dname)] = rec
-            for kernel, brec in backward_case(fa, name, shape, dtype, q, k, v, valid, out, lse,
+            gd = torch.Generator(device=dev).manual_seed(100 + N)
+            dout = torch.randn(shape, generator=gd, device=dev).to(dtype)
+            for kernel, brec in backward_case(fa, name, q, k, v, valid, out, lse, dout,
                                               n_valid, cycles_per_s).items():
                 results[(name, dname, kernel)] = brec
+    backward_stride_and_edge_cases(fa, cycles_per_s)
     return results
 
 
@@ -430,7 +495,8 @@ def main(argv=None) -> int:
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         built[name] = {"library": lib.name, "ptxas": [
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": built})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": built,
+          "backward_bf16_occupancy": fa.backward_occupancy()})
 
     cases = kernel_phase(fa)
     v2a_launches = v2a_phase(fa)

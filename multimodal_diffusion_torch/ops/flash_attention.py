@@ -8,9 +8,12 @@ differentiable ``flash_attention`` over them.
     ``_flash_bwd_dq_kernel`` (``flash_backward``, two launches per call).
 
 Each source is built with ``nvcc`` for ``sm_90a`` at first use into
-``_build/`` (listed in .gitignore), keyed by its content hash, and bound
-with ctypes. A wrapper runs the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches its kernel or raises.
+``_build/`` (listed in .gitignore), keyed by the content hash of the source
+and of every header beside it, and bound with ctypes. The bf16 backward
+kernels run on the tensor cores (``wgmma``) and copy 16 bytes at a time, so
+their operands must be 16-byte aligned (``misaligned_operands``); fp32 keeps
+FMA kernels, which take any alignment. A wrapper runs the plain version only
+for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -82,14 +85,23 @@ def _nvcc() -> Optional[str]:
     return str(default) if default.exists() else None
 
 
+def source_tag(source: Path) -> str:
+    """Content hash of a .cu file and of every header in its directory (any
+    of which it may include): the key of its built library."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")) + sorted(source.parent.glob("*.h")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str = "flash_fwd") -> Path:
-    """Compile csrc/<name>.cu for sm_90a into BUILD_DIR (once per source
-    content) and return the shared library's path. The compiler's register
-    and shared-memory report is kept beside it as a .log. Safe to call for
-    several sources at once from threads."""
+    """Compile csrc/<name>.cu for sm_90a into BUILD_DIR (once per content of
+    the source and the headers beside it) and return the shared library's
+    path. The compiler's register and shared-memory report is kept beside it
+    as a .log. Safe to call for several sources at once from threads."""
     source = SOURCES[name]
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{tag}.so"
+    lib = BUILD_DIR / f"lib{name}_{source_tag(source)}.so"
     if lib.exists():
         return lib
     nvcc = _nvcc()
@@ -100,7 +112,7 @@ def build(name: str = "flash_fwd") -> Path:
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(source)]
+           "-I", str(source.parent), "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -124,7 +136,27 @@ def _library(name: str = "flash_fwd") -> ctypes.CDLL:
         lib.flash_bwd_dkdv.argtypes = [ptr] * 9 + [i32] * 6 + [strides, ctypes.c_float, ptr]
         lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [strides, ctypes.c_float, ptr]
         lib.flash_bwd_dkdv.restype = lib.flash_bwd_dq.restype = i32
+        lib.flash_bwd_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.flash_bwd_occupancy.restype = i32
     return lib
+
+
+def backward_occupancy() -> dict:
+    """Of each bf16 backward kernel at each head dim, on the current card:
+    the dynamic shared memory of one block and the blocks an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 128 threads a block)."""
+    lib = _library("flash_bwd")
+    table = {}
+    for kernel in ("dkdv", "dq"):
+        for head_dim in SUPPORTED_HEAD_DIMS:
+            smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            err = lib.flash_bwd_occupancy(int(kernel == "dq"), head_dim,
+                                          ctypes.byref(smem), ctypes.byref(blocks))
+            if err != 0:
+                raise RuntimeError(f"flash_bwd_occupancy failed with CUDA error {err}")
+            table[f"flash_bwd_{kernel}_bf16_dh{head_dim}"] = {
+                "smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
+    return table
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,6 +191,29 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"got {valid.dtype} {tuple(valid.shape)}")
         if valid.device != q.device or not valid.is_contiguous():
             raise ValueError(f"{who}: valid must be contiguous on q's device")
+
+
+def misaligned_operands(**operands: torch.Tensor) -> list:
+    """Names of the [B, H, N, Dh] operands that the bf16 backward kernels
+    cannot copy 16 bytes at a time: a base address or a batch, head or row
+    stride (of a dim longer than 1) that is not a multiple of 16 bytes. Reads
+    only addresses and strides, so it takes tensors on any device."""
+    bad = []
+    for name, t in operands.items():
+        step = 16 // t.element_size()
+        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(s % step for s in strides):
+            bad.append(name)
+    return bad
+
+
+def require_aligned(who: str, **operands: torch.Tensor) -> None:
+    """Raise for operands that ``misaligned_operands`` names: there is no
+    slower path behind the bf16 backward kernels."""
+    bad = misaligned_operands(**operands)
+    if bad:
+        raise ValueError(f"{who}: {bad} not 16-byte aligned (base address and batch, "
+                         f"head and row strides)")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -251,6 +306,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, dout, valid, delta)
     _check_inputs(q, k, v, valid, "flash_backward", dout=dout)
+    if q.dtype == torch.bfloat16:
+        require_aligned("flash_backward", q=q, k=k, v=v, dout=dout)
     B, H, N, Dh = q.shape
     if delta is None:
         delta = (dout.float() * out.float()).sum(dim=-1)
@@ -277,6 +334,8 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor, v: tor
     this directly to time each kernel alone."""
     B, H, N, Dh = q.shape
     views = [grads[:, :, i].transpose(1, 2) for i in range(3)]
+    if q.dtype == torch.bfloat16:
+        require_aligned("flash_backward", dq=views[0], dk=views[1], dv=views[2])
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, dout, *views) for s in t.stride()[:3]))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -310,7 +369,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, valid = ctx.saved_tensors
-        if dout.stride(-1) != 1:  # e.g. an expanded (stride 0) gradient
+        # e.g. an expanded (stride 0) gradient, or a view off the 16-byte grid
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                    and misaligned_operands(dout=dout)):
             dout = dout.contiguous()
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout, valid)
         return dq, dk, dv, None

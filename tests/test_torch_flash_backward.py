@@ -17,6 +17,9 @@ from multimodal_diffusion_tpu.ops.flash_attention import _flash_backward, _flash
 
 # N = 133 is the mvp token count (not a multiple of the 128 tile); Dh 32 and 64
 SHAPES = [(2, 2, 133, 64), (1, 2, 133, 32), (1, 1, 128, 64)]
+# around the 16-row pieces of the tensor-core kernels' tiles: one row short of
+# a piece, a whole one, one over, and one over nine
+EDGE_N = [15, 16, 17, 145]
 MASKS = ["none", "keys", "row_all_masked"]
 
 
@@ -70,6 +73,19 @@ def test_reference_matches_pallas_interpret_fp32(shape, mask):
         np.testing.assert_allclose(t.numpy(), j, rtol=2e-5, atol=2e-5, err_msg=name)
         if mask == "row_all_masked":
             assert np.all(t[0].numpy() == 0.0) and np.all(j[0] == 0.0), name
+
+
+@pytest.mark.parametrize("mask", ["none", "keys"])
+@pytest.mark.parametrize("N", EDGE_N)
+def test_reference_matches_pallas_interpret_fp32_at_the_16_row_edges(N, mask):
+    """fp32: 2e-5, as the cases above."""
+    shape = (1, 2, N, 64)
+    q, k, v, g = _arrays(shape, seed=N)
+    kpad = _key_padding(1, N, mask, seed=N)
+    out, lse, j_grads = _jax_fwd_bwd(q, k, v, g, kpad, jnp.float32)
+    t_grads = _torch_bwd(q, k, v, g, kpad, out, lse, torch.float32)
+    for name, t, j in zip(("dq", "dk", "dv"), t_grads, j_grads):
+        np.testing.assert_allclose(t.numpy(), j, rtol=2e-5, atol=2e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("mask", ["none", "row_all_masked"])
@@ -158,3 +174,73 @@ def test_backward_wrapper_rejects_a_non_cuda_device():
     lse = torch.empty((1, 1, 16), device="meta")
     with pytest.raises(ValueError, match="not CUDA"):
         t_fa.flash_backward(q, q, q, q, lse, q)
+
+
+def _fused_qkv_views(B, N, H, Dh, dtype):
+    qkv = torch.zeros((B, N, 3, H, Dh), dtype=dtype)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def test_alignment_check_takes_the_train_step_operands():
+    """q, k, v as head views of the fused qkv projection and dO as a
+    [B, N, H, Dh] buffer seen as [B, H, N, Dh]: 16-byte aligned at every
+    head dim the kernels take."""
+    for Dh in t_fa.SUPPORTED_HEAD_DIMS:
+        q, k, v = _fused_qkv_views(2, 133, 8, Dh, torch.bfloat16)
+        dout = torch.zeros((2, 133, 8, Dh), dtype=torch.bfloat16).transpose(1, 2)
+        assert t_fa.misaligned_operands(q=q, k=k, v=v, dout=dout) == []
+
+
+def test_alignment_check_names_the_misaligned_operands():
+    """A base address 8 bytes into a row, and a row stride of 33 elements,
+    are named; a dim of length 1 may have any stride."""
+    wide = torch.zeros((2, 2, 40, 72), dtype=torch.bfloat16)
+    ok = wide[..., :64]
+    off_base = wide[..., 4:68]
+    assert off_base.data_ptr() % 16 == 8
+    odd_rows = torch.zeros((2, 2, 40, 33), dtype=torch.bfloat16)[..., :32]
+    assert t_fa.misaligned_operands(q=ok, k=off_base, v=odd_rows, dout=ok) == ["k", "v"]
+    one_row = torch.zeros((2, 2, 1, 33), dtype=torch.bfloat16)[..., :32]
+    assert one_row.stride(2) == 33
+    assert t_fa.misaligned_operands(q=one_row[:1, :1]) == []
+    # fp32 steps in units of 4 elements
+    assert t_fa.misaligned_operands(q=torch.zeros((1, 2, 8, 34))[..., :32]) == ["q"]
+
+
+def test_require_aligned_raises_and_names_the_operand():
+    """No slow path behind the check: the wrapper's guard raises."""
+    q = torch.zeros((1, 2, 16, 40), dtype=torch.bfloat16)[..., 4:36]
+    ok = torch.zeros((1, 2, 16, 32), dtype=torch.bfloat16)
+    t_fa.require_aligned("flash_backward", q=ok, dout=ok)
+    with pytest.raises(ValueError, match=r"flash_backward: \['dout'\] not 16-byte aligned"):
+        t_fa.require_aligned("flash_backward", q=ok, dout=q)
+
+
+def test_build_tag_follows_the_source_and_its_headers(tmp_path):
+    """The library is keyed by the .cu file and every header beside it: a
+    change to a header alone gives a new tag, a change to another .cu file or
+    no change at all does not."""
+    src = tmp_path / "kernel.cu"
+    other = tmp_path / "other.cu"
+    header = tmp_path / "common.cuh"
+    src.write_text('#include "common.cuh"\n__global__ void k() {}\n')
+    other.write_text("__global__ void o() {}\n")
+    header.write_text("#define TILE 64\n")
+    tag = t_fa.source_tag(src)
+    assert t_fa.source_tag(src) == tag
+    other.write_text("__global__ void o2() {}\n")
+    assert t_fa.source_tag(src) == tag
+    header.write_text("#define TILE 32\n")
+    tag_header = t_fa.source_tag(src)
+    assert tag_header != tag
+    src.write_text('#include "common.cuh"\n__global__ void k2() {}\n')
+    assert t_fa.source_tag(src) not in (tag, tag_header)
+    (tmp_path / "new.h").write_text("// a new header\n")
+    assert t_fa.source_tag(src) not in (tag, tag_header)
+
+
+def test_every_kernel_source_is_keyed_with_the_shared_header():
+    """The real sources: csrc/flash_common.cuh is part of both tags."""
+    header = t_fa.SOURCES["flash_bwd"].parent / "flash_common.cuh"
+    assert header.exists()
+    assert '#include "flash_common.cuh"' in t_fa.SOURCES["flash_bwd"].read_text()

@@ -144,6 +144,85 @@ def test_flash_bwd_takes_strided_operands(cuda):
         assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16], name
 
 
+def _bwd_grads_and_refs(q, k, v, dout, valid):
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    grads = t_fa.flash_backward(q, k, v, out, lse, dout, valid)
+    refs = t_fa.flash_backward_reference(q, k, v, out, lse, dout, valid)
+    torch.cuda.synchronize()
+    return grads, refs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_masked", [0, 5])
+@pytest.mark.parametrize("N", [15, 16, 17, 145])
+def test_flash_bwd_at_the_16_row_edges(cuda, N, n_masked, dtype):
+    """The tensor-core kernels work in 16-row pieces: one row short of a
+    piece, a whole one, one row over, and one over nine (144 + 1)."""
+    shape = (2, 2, N, 64)
+    q, k, v, valid = _inputs(cuda, shape, dtype, n_masked, seed=6)
+    dout = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(7),
+                       device=cuda).to(dtype)
+    grads, refs = _bwd_grads_and_refs(q, k, v, dout, valid)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _rel_err(g, r) <= BWD_TOL[dtype], f"{name}: {_rel_err(g, r)}"
+
+
+@pytest.mark.gpu
+def test_flash_bwd_takes_the_train_step_strides(cuda):
+    """The mvp train step's operands at full width: q, k, v as head views of
+    the fused qkv projection [8, 133, 3, 8, 64], dO a [B, N, H, Dh] buffer."""
+    B, N, H, Dh = 8, 133, 8, 64
+    g = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    dout = torch.randn((B, N, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
+    dout = dout.transpose(1, 2)
+    assert not t_fa.misaligned_operands(q=q, k=k, v=v, dout=dout)
+    grads, refs = _bwd_grads_and_refs(q, k, v, dout, None)
+    for name, gr, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.gpu
+def test_flash_bwd_raises_on_a_misaligned_view(cuda):
+    """bf16 operands off the 16-byte grid are refused, not sent down a slower
+    path: here q starts 8 bytes into a row of a wider buffer."""
+    shape = (2, 2, 40, 64)
+    q, k, v, _ = _inputs(cuda, shape, torch.bfloat16, 0, seed=9)
+    wide = torch.zeros((2, 2, 40, 72), dtype=torch.bfloat16, device=cuda)
+    wide[..., 4:68] = q
+    q_off = wide[..., 4:68]
+    assert q_off.stride(-1) == 1 and q_off.data_ptr() % 16 == 8
+    out, lse = t_fa.flash_forward(q, k, v)
+    before = (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t_fa.flash_backward(q_off, k, v, out, lse, q)
+    assert (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches) == before
+    # fp32 goes through the FMA kernels, which take any alignment of 4 bytes
+    wide32 = torch.zeros((2, 2, 40, 65), dtype=torch.float32, device=cuda)
+    wide32[..., 1:] = q.float()
+    grads, refs = _bwd_grads_and_refs(wide32[..., 1:], k.float(), v.float(), q.float(), None)
+    for gr, r in zip(grads, refs):
+        assert _rel_err(gr, r) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n_masked", [((8, 8, 133, 64), 0), ((8, 8, 421, 128), 0),
+                                            ((2, 4, 1152, 128), 51)])
+def test_flash_bwd_is_bit_identical_from_call_to_call(cuda, shape, n_masked):
+    """Each grad element has one owner block and a fixed order of summation."""
+    q, k, v, valid = _inputs(cuda, shape, torch.bfloat16, n_masked, seed=10)
+    dout = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(11),
+                       device=cuda).to(torch.bfloat16)
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    first = [g.clone() for g in t_fa.flash_backward(q, k, v, out, lse, dout, valid)]
+    second = t_fa.flash_backward(q, k, v, out, lse, dout, valid)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.gpu
 def test_flash_bwd_rejects_what_it_does_not_take(cuda):
     q, k, v, _ = _inputs(cuda, (1, 1, 16, 48), torch.float32, 0)
