@@ -7,19 +7,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — the card (nvidia-smi name, power limit), torch and CUDA versions;
   2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu and
                csrc/flash_bwd.cu, one nvcc each, started together; their
-               registers and spills, and the bf16 backward kernels' shared
-               memory per block and blocks per SM;
-  3. kernel  — the flash-attention forward kernel against its plain PyTorch
-               version (out and lse), then the two backward kernels (dK/dV,
-               dQ) against theirs (dq, dk, dv), at the mvp sampling and
-               training, flagship and t2i shapes, masked and unmasked, bf16
-               and fp32 (TF32 off), with each kernel's time, the plain
-               version's, SDPA's forward or backward (a yardstick the port
-               never calls) and the least time the card could take; two
-               backward calls must give bit-identical grads; the backward
-               pair again with the train step's strides (head views of a
-               fused qkv buffer, dO a [B, N, H, Dh] buffer) and, untimed, at
-               the 16-row edges N = 15, 16, 17, 145, masked and unmasked;
+               registers and spills, and the bf16 kernels' shared memory per
+               block and blocks per SM;
+  3. kernel  — the timing method's floor (the device time it reads for the
+               smallest launches); the flash-attention forward kernel against
+               its plain PyTorch version (out and lse), then the two backward
+               kernels (dK/dV, dQ) against theirs (dq, dk, dv), at the mvp
+               sampling and training, flagship and t2i shapes, masked and
+               unmasked, bf16 and fp32 (TF32 off), with each kernel's time,
+               the plain version's, SDPA's forward or backward (a yardstick
+               the port never calls) and the least time the card could take;
+               two calls of a kernel must give the same bits; the forward
+               with the sampler's strides and the backward pair with the
+               train step's (head views of a fused qkv buffer, dO a
+               [B, N, H, Dh] buffer); all three, untimed, at the 16-row edges
+               N = 15, 16, 17, 145, masked and unmasked; the forward at
+               N = 128, 133, 192 (what the ragged edge costs);
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -71,10 +74,13 @@ TOL = {"float32": {"out": 1e-4, "lse": 1e-4}, "bfloat16": {"out": 2e-2, "lse": 1
 # to bf16, and another fp32 sum order can flip one rounding by an ulp (2^-8)
 # (the H100 read <= 6.0e-7 in fp32 and <= 2.8e-3 in bf16, see PERF.md)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# the mvp train step's attention operands, and sequence lengths around the
-# 16-row pieces the tensor-core backward kernels work in
+# the attention operands of the mvp sampler (CFG-doubled batch) and of the mvp
+# train step, sequence lengths around the 16-row pieces the tensor-core
+# kernels work in, and lengths around the 64-row tiles (mvp has N = 133)
+FWD_STRIDED_SHAPE = (16, 8, 133, 64)
 BWD_STRIDED_SHAPE = (8, 8, 133, 64)
-BWD_EDGE_N = (15, 16, 17, 145)
+EDGE_N = (15, 16, 17, 145)
+RAGGED_N = (128, 133, 192)
 V2A_CLIPS, V2A_STEPS = 8, 50
 TRAIN_CLIPS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
 # one full-width train-loss gradient (eval mode, fixed batch and draws) with
@@ -165,6 +171,29 @@ def attention_bwd_bound_ms(kernel: str, shape, dtype_name: str, n_valid_keys: li
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def forward_check(fa, name, q, k, v, valid, n_valid):
+    """The forward kernel against its plain version on the same inputs (out
+    and lse), and against itself: a second call must give the same bits."""
+    import torch
+
+    dname = str(q.dtype).split(".")[-1]
+    out, lse = fa.flash_forward(q, k, v, valid)
+    again = fa.flash_forward(q, k, v, valid)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    err_out = float((out.float() - ref_out.float()).abs().max())
+    err_lse = float((lse - ref_lse).abs().max())
+    tol = TOL[dname]
+    if not (err_out <= tol["out"] and err_lse <= tol["lse"]):
+        raise AssertionError(f"{name} {dname}: kernel disagrees with its plain "
+                             f"version: out {err_out} lse {err_lse} (tol {tol})")
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"{name} {dname}: two forward calls differ")
+    if n_valid[0] == 0 and not bool((out[0] == 0).all()):
+        raise AssertionError(f"{name} {dname}: a fully masked row is not exactly 0")
+    return out, lse, err_out, err_lse
+
+
 def backward_check(fa, name, q, k, v, valid, out, lse, dout, n_valid):
     """Both backward kernels against their plain version on the same inputs,
     and against themselves: a second call must give the same bits."""
@@ -229,24 +258,71 @@ def backward_case(fa, name, q, k, v, valid, out, lse, dout, n_valid, cycles_per_
     return recs
 
 
-def backward_stride_and_edge_cases(fa, cycles_per_s):
-    """The backward pair with the operands the train step hands it (q, k, v
-    head views of one fused qkv buffer [B, N, 3, H, Dh], dO a [B, N, H, Dh]
-    buffer), checked and timed; then, checked only, at the edges of the
-    tensor-core kernels' 16-row pieces, masked and unmasked, bf16 and fp32."""
+def forward_case(fa, name, q, k, v, valid, n_valid, cycles_per_s):
+    """The forward kernel at one case: checked (forward_check), then timed
+    beside the plain version and SDPA's forward."""
+    import torch.nn.functional as F
+
+    dname = str(q.dtype).split(".")[-1]
+    shape = tuple(q.shape)
+    out, lse, err_out, err_lse = forward_check(fa, name, q, k, v, valid, n_valid)
+    mask4 = None if valid is None else valid[:, None, None, :]
+    ms = cuda_median_ms(lambda: fa.flash_forward(q, k, v, valid), cycles_per_s)
+    plain_ms = cuda_median_ms(lambda: fa.flash_forward_reference(q, k, v, valid), cycles_per_s)
+    library_ms = cuda_median_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), cycles_per_s)
+    bound_ms, bound_by = attention_bound_ms(shape, dname, n_valid, valid is not None)
+    rec = {"phase": "kernel", "kernel": "flash_fwd", "case": name,
+           "shape": list(shape), "dtype": dname,
+           "masked_keys": shape[2] * shape[0] - sum(n_valid),
+           "max_abs_err_out": err_out, "max_abs_err_lse": err_lse, "tol": TOL[dname],
+           "repeat_bit_identical": True,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms}
+    emit(rec)
+    return out, lse, rec
+
+
+def timing_floor(fa, cycles_per_s):
+    """What cuda_median_ms reads for the smallest launches it can make: a
+    one-element fill, and each flash_forward kernel on one query and one key.
+    A kernel's share of its bound is best read net of this."""
     import torch
 
     dev = torch.device("cuda")
-    B, H, N, Dh = BWD_STRIDED_SHAPE
-    g = torch.Generator(device=dev).manual_seed(50)
-    qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=dev).to(torch.bfloat16)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    dout = torch.randn((B, N, H, Dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
-    out, lse = fa.flash_forward(q, k, v)
-    backward_case(fa, "mvp_train_qkv_strides", q, k, v, None, out, lse, dout, [N] * B,
-                  cycles_per_s)
+    one = torch.zeros(1, device=dev)
+    floor = {"fill_1_element_ms": cuda_median_ms(lambda: one.fill_(1.0), cycles_per_s)}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.ones((1, 1, 1, 32), dtype=dtype, device=dev)
+        dname = str(dtype).split(".")[-1]
+        floor[f"flash_fwd_1x1x1x32_{dname}_ms"] = cuda_median_ms(
+            lambda: fa.flash_forward(q, q, q), cycles_per_s)
+    emit({"phase": "kernel", "timing_floor": floor})
 
-    for N in BWD_EDGE_N:
+
+def stride_and_edge_cases(fa, cycles_per_s):
+    """The forward with the operands the sampler hands it and the backward
+    pair with the train step's (q, k, v head views of one fused qkv buffer
+    [B, N, 3, H, Dh], dO a [B, N, H, Dh] buffer), checked and timed; then,
+    checked only, all three at the edges of the tensor-core kernels' 16-row
+    pieces, masked and unmasked, bf16 and fp32; then the forward timed at
+    sequence lengths around its 64-row tiles."""
+    import torch
+
+    dev = torch.device("cuda")
+    for name, shape in (("mvp_qkv_strides", FWD_STRIDED_SHAPE),
+                        ("mvp_train_qkv_strides", BWD_STRIDED_SHAPE)):
+        B, H, N, Dh = shape
+        g = torch.Generator(device=dev).manual_seed(50)
+        qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out, lse, _ = forward_case(fa, name, q, k, v, None, [N] * B, cycles_per_s)
+        if shape == BWD_STRIDED_SHAPE:
+            dout = torch.randn((B, N, H, Dh), generator=g, device=dev).to(
+                torch.bfloat16).transpose(1, 2)
+            backward_case(fa, name, q, k, v, None, out, lse, dout, [N] * B, cycles_per_s)
+
+    for N in EDGE_N:
         for n_masked in (0, min(5, N - 1)):
             for dtype in (torch.bfloat16, torch.float32):
                 shape = (2, 8, N, 64)
@@ -258,23 +334,38 @@ def backward_stride_and_edge_cases(fa, cycles_per_s):
                     valid = torch.ones((2, N), dtype=torch.bool, device=dev)
                     valid[0, N - n_masked:] = False
                     n_valid[0] = N - n_masked
-                out, lse = fa.flash_forward(q, k, v, valid)
                 name, dname = f"edge_n{N}", str(dtype).split(".")[-1]
+                out, lse, err_out, err_lse = forward_check(fa, name, q, k, v, valid, n_valid)
+                emit({"phase": "kernel", "kernel": "flash_fwd", "case": name,
+                      "shape": list(shape), "dtype": dname, "masked_keys": n_masked,
+                      "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+                      "tol": TOL[dname], "repeat_bit_identical": True})
                 errs, rel = backward_check(fa, name, q, k, v, valid, out, lse, dout, n_valid)
                 emit({"phase": "kernel", "kernel": "flash_bwd_pair", "case": name,
                       "shape": list(shape), "dtype": dname, "masked_keys": n_masked,
                       "max_abs_err": errs, "rel_err": rel, "tol": BWD_TOL[dname],
                       "repeat_bit_identical": True})
 
+    ragged = {}
+    for N in RAGGED_N:
+        B, H, _, Dh = FWD_STRIDED_SHAPE
+        g = torch.Generator(device=dev).manual_seed(70)
+        q, k, v = (torch.randn((B, H, N, Dh), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        ragged[f"n{N}_ms"] = cuda_median_ms(lambda: fa.flash_forward(q, k, v), cycles_per_s)
+    emit({"phase": "kernel", "kernel": "flash_fwd", "case": "ragged_edge",
+          "shape": [FWD_STRIDED_SHAPE[0], FWD_STRIDED_SHAPE[1], list(RAGGED_N), 64],
+          "dtype": "bfloat16", **ragged})
+
 
 def kernel_phase(fa):
     import torch
-    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cycles_per_s = spin_cycles_per_s()
+    timing_floor(fa, cycles_per_s)
     results = {}
     for case_idx, (name, shape, n_masked) in enumerate(KERNEL_CASES):
         for dtype in (torch.bfloat16, torch.float32):
@@ -288,39 +379,14 @@ def kernel_phase(fa):
                 valid = torch.ones((B, N), dtype=torch.bool, device=dev)
                 valid[0, N - n_masked:] = False
                 n_valid[0] = N - n_masked
-            out, lse = fa.flash_forward(q, k, v, valid)
-            ref_out, ref_lse = fa.flash_forward_reference(q, k, v, valid)
-            torch.cuda.synchronize()
-            err_out = float((out.float() - ref_out.float()).abs().max())
-            err_lse = float((lse - ref_lse).abs().max())
-            tol = TOL[dname]
-            if not (err_out <= tol["out"] and err_lse <= tol["lse"]):
-                raise AssertionError(f"{name} {dname}: kernel disagrees with its plain "
-                                     f"version: out {err_out} lse {err_lse} (tol {tol})")
-            if n_masked == N and not bool((out[0] == 0).all()):
-                raise AssertionError(f"{name} {dname}: a fully masked row is not exactly 0")
-            mask4 = None if valid is None else valid[:, None, None, :]
-            ms = cuda_median_ms(lambda: fa.flash_forward(q, k, v, valid), cycles_per_s)
-            plain_ms = cuda_median_ms(lambda: fa.flash_forward_reference(q, k, v, valid),
-                                      cycles_per_s)
-            library_ms = cuda_median_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4),
-                cycles_per_s)
-            bound_ms, bound_by = attention_bound_ms(shape, dname, n_valid, valid is not None)
-            rec = {"phase": "kernel", "kernel": "flash_fwd", "case": name,
-                   "shape": list(shape), "dtype": dname, "masked_keys": n_masked,
-                   "max_abs_err_out": err_out, "max_abs_err_lse": err_lse, "tol": tol,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bound_share": bound_ms / ms}
-            emit(rec)
+            out, lse, rec = forward_case(fa, name, q, k, v, valid, n_valid, cycles_per_s)
             results[(name, dname)] = rec
             gd = torch.Generator(device=dev).manual_seed(100 + N)
             dout = torch.randn(shape, generator=gd, device=dev).to(dtype)
             for kernel, brec in backward_case(fa, name, q, k, v, valid, out, lse, dout,
                                               n_valid, cycles_per_s).items():
                 results[(name, dname, kernel)] = brec
-    backward_stride_and_edge_cases(fa, cycles_per_s)
+    stride_and_edge_cases(fa, cycles_per_s)
     return results
 
 
@@ -496,6 +562,7 @@ def main(argv=None) -> int:
         built[name] = {"library": lib.name, "ptxas": [
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": built,
+          "forward_bf16_occupancy": fa.forward_occupancy(),
           "backward_bf16_occupancy": fa.backward_occupancy()})
 
     cases = kernel_phase(fa)

@@ -458,17 +458,6 @@ struct WgTile {
                 "the grads leave through the tiles' memory");
 };
 
-// x where keep is -1 and +0 where it is 0: a select that cannot become a
-// branch (64 data-dependent branches a step cost several times the products)
-// and, unlike a product with 0, turns inf and NaN into 0 too
-__device__ __forceinline__ float select_bits(float x, int keep) {
-  return __int_as_float(__float_as_int(x) & keep);
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024 - (flash::smem_addr(p) & 1023)) & 1023);
-}
-
 // dK / dV: one warpgroup per (batch*head, 64 keys); it walks every query
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_wgmma_kernel(const Params p) {

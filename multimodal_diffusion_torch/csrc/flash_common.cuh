@@ -29,6 +29,25 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary of shared memory at or after p: where the
+// swizzled tiles of a block start (its dynamic shared memory has 1024 bytes
+// of slack for this)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// x where keep is -1 and +0 where it is 0: a select that cannot become a
+// branch (64 data-dependent branches a step cost several times the products)
+// and, unlike a product with 0, turns inf and NaN into 0 too
+__device__ __forceinline__ float select_bits(float x, int keep) {
+  return __int_as_float(__float_as_int(x) & keep);
+}
+
+// x where keep is -1 and `other` where it is 0, bitwise as well
+__device__ __forceinline__ float select_bits(float x, float other, int keep) {
+  return __int_as_float((__float_as_int(x) & keep) | (__float_as_int(other) & ~keep));
+}
+
 // A [R, D] bf16 tile in shared memory as wgmma wants it: blocks of up to 64
 // columns, each block R rows of 128 bytes (64 bytes at D = 32) with the
 // 16-byte pieces of a row XOR-swizzled by the row index (the hardware's
@@ -262,20 +281,29 @@ struct OutTile {
   static constexpr int BYTES = 64 * LD * 2;
 };
 
-// A warp's 16 rows of a 64 x D fp32 accumulator, times `scale`, rounded to
-// bf16 into rows [16 warp, 16 warp + 16) of such a tile
+// A warp's 16 rows of a 64 x D fp32 accumulator, rounded to bf16 into rows
+// [16 warp, 16 warp + 16) of such a tile; the thread's row lane / 4 of them
+// times `scale_lo`, its row lane / 4 + 8 times `scale_hi`
 template <int D>
 __device__ __forceinline__ void store_acc_to_tile(__nv_bfloat16* tile, const float (&c)[D / 2],
-                                                  float scale, int warp, int lane) {
+                                                  float scale_lo, float scale_hi, int warp,
+                                                  int lane) {
   constexpr int LD = OutTile<D>::LD;
   __nv_bfloat16* row = tile + (16 * warp + (lane >> 2)) * LD + 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-        __floats2bfloat162_rn(c[4 * j] * scale, c[4 * j + 1] * scale);
+        __floats2bfloat162_rn(c[4 * j] * scale_lo, c[4 * j + 1] * scale_lo);
     *reinterpret_cast<__nv_bfloat162*>(row + 8 * LD + 8 * j) =
-        __floats2bfloat162_rn(c[4 * j + 2] * scale, c[4 * j + 3] * scale);
+        __floats2bfloat162_rn(c[4 * j + 2] * scale_hi, c[4 * j + 3] * scale_hi);
   }
+}
+
+// the same with one scale for every row
+template <int D>
+__device__ __forceinline__ void store_acc_to_tile(__nv_bfloat16* tile, const float (&c)[D / 2],
+                                                  float scale, int warp, int lane) {
+  store_acc_to_tile<D>(tile, c, scale, scale, warp, lane);
 }
 
 // The same 16 rows of the tile to rows n_first .. n_first + 15 of a [N, D]

@@ -18,33 +18,72 @@
 // (4*B*H*N^2*Dh), 0.6 us: it is bound by bytes. The flagship
 // [8, 8, 421, 128] bf16 shape is bound by bytes too (8.2 us vs 5.9 us), the
 // t2i [2, 4, 1152, 128] shape by operations (5.3 us vs 2.8 us), and every
-// fp32 shape by operations. This kernel does its products on the fp32 FMA
-// units, not the tensor cores, so it stays far above the bf16 bound: the
-// first aim is a kernel that is right (see PERF.md for its measured times).
+// fp32 shape by operations. A head's K and V stay in L2 however many blocks
+// re-read them, so what the design has to keep low is the time per product
+// and the latency of each step of the walk over the keys (PERF.md has the
+// measured times).
 //
-// Design (simple first; wgmma/TMA are later work):
-//   * grid = (B*H, ceil(N / 64)); a block of 128 threads owns 64 query rows
-//     and walks all K/V tiles in a loop (the TPU's sequential grid axis
-//     becomes this loop; nothing carries over between blocks).
-//   * Q, K, V tiles are staged through shared memory as fp32; the K/V tile is
-//     64 keys for Dh <= 64 and 32 keys for Dh = 128, so three blocks fit on
-//     an SM. Row strides are padded by one word so the column walks below
-//     hit distinct banks.
-//   * thread (rg, cg) = (tid / 8, tid % 8) owns query rows 4*rg .. 4*rg+3 and
-//     the key columns / output columns cg, cg+8, ...: S and PV are register-
-//     tiled FMA loops, the row max and row sum are reduced over the 8 lanes
-//     of a row group with warp shuffles, and P goes through shared memory to
-//     the PV loop.
-//   * the ragged edge (N not a multiple of the tile) is masked in the
-//     kernel: no host padding. The optional key-validity mask is one byte per
-//     key, [B, N] (1 = attendable), shared by all heads.
-//   * inputs are [B, H, N, Dh] with any batch/head/row strides and unit
-//     stride along Dh; the output takes strides too, so the caller can hand
-//     in a [B, N, H, Dh] buffer and skip a transpose.
+// bf16 design (`flash_fwd_wgmma_kernel`, with csrc/flash_common.cuh):
+//   * grid = (B*H, ceil(N / 64)); a block is one warpgroup (128 threads) that
+//     owns 64 query rows and walks K and V 64 keys at a time (the TPU's
+//     sequential grid axis becomes this loop; nothing carries over between
+//     blocks). Q is copied once, K and V go through two `cp.async` stages, so
+//     the next tile's copy runs under this tile's products. Tiles are bf16 in
+//     wgmma's swizzled layout, rows at or past N filled with zeros. Base
+//     pointers and batch/head/row strides must be multiples of 16 bytes (the
+//     wrapper checks).
+//   * S = Q K^T is a `wgmma.mma_async` over both tiles in shared memory into
+//     32 fp32 registers a thread. The online softmax runs on those registers
+//     where they are: a thread holds two rows (16 warp + lane / 4 and + 8),
+//     16 columns of each, and the 4 lanes of a quad hold a whole row, so the
+//     row max is two shuffles. Masked and ragged keys take the -1e30 sentinel
+//     before the max; p = exp(s - m_new) is set to 0 for them by a bitwise
+//     select (`select_bits`: a row whose keys are all masked has m = -1e30
+//     and exp(0) = 1 there), which cannot be compiled into a branch per
+//     score. The exp is one multiply-add and one `ex2.approx` a score: m is
+//     kept for q . k before `scale`, and scale * log2(e) is one factor.
+//     Each thread keeps the fp32 sum of its own p; the quad adds them up
+//     once, after the walk (every partial of a row is rescaled by the same
+//     alpha).
+//   * P never leaves the registers: rounded to bf16 it is the register-A
+//     operand of O += P V, and V enters with its rows (the keys) as the
+//     contraction dim, a transposed B operand read from the same swizzled
+//     tile. O is a wgmma accumulator (Dh / 2 registers) that ordinary
+//     instructions rescale by alpha = exp(m_old - m_new) between two batches
+//     of products: the previous batch is waited for and the registers pinned
+//     before the multiply, and a `wgmma.fence` follows it.
+//   * Epilogue: O times 1 / max(l, 1e-30) by row, staged through the tiles'
+//     shared memory and written 16 bytes a lane, a row as one contiguous run;
+//     lse by one lane of each quad.
+//   * 64-row tiles give 384 blocks at the mvp sampling shape and 448 at the
+//     flagship shape on 132 SMs; a block takes 81 KB of shared memory at
+//     Dh 128 (2 an SM), 41 KB at Dh 64 (4), 21 KB at Dh 32 (5).
+//   * The order within a step is plain: S, wait, softmax and rescale, P V,
+//     wait. Issuing the next tile's S before this tile's softmax, and taking
+//     the next tile's softmax under this tile's P V, were both built and both
+//     slower: with these one-instruction `asm` wrappers ptxas serialises the
+//     products of a stage in which other instructions write registers that a
+//     wgmma reads or accumulates into (PERF.md has the readings). The blocks
+//     an SM holds at once overlap one block's softmax with another's products.
+// fp32 keeps the FMA kernel below (`flash_fwd_kernel`): tensor cores take
+// fp32 only as TF32, about three decimal digits, which the 1e-4 tolerance
+// forbids. It stages fp32 tiles in shared memory (64 keys for Dh <= 64, 32
+// for Dh = 128, rows padded by one word); thread (rg, cg) = (tid / 8,
+// tid % 8) owns query rows 4*rg .. 4*rg+3 and the key / output columns cg,
+// cg+8, ...; S and PV are register-tiled FMA loops, the row max and sum are
+// reduced over the 8 lanes of a row group with shuffles, and P goes through
+// shared memory to the PV loop.
+// Both kernels mask the ragged edge themselves (no host padding), take the
+// optional key-validity mask as one byte per key, [B, N] (1 = attendable),
+// shared by all heads, and take [B, H, N, Dh] inputs with any batch/head/row
+// strides and unit stride along Dh; the output takes strides too, so the
+// caller can hand in a [B, N, H, Dh] buffer and skip a transpose.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
@@ -69,14 +108,13 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ bool key_ok(const Params& p, int b, int n) {
+  return n < p.N && (p.valid == nullptr || p.valid[(long long)b * p.N + n] != 0);
 }
+
+// ---------------------------------------------------------------------------
+// fp32 on the FMA units
+// ---------------------------------------------------------------------------
 
 template <int D>
 struct Tile {
@@ -91,7 +129,7 @@ struct Tile {
   static constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   using TL = Tile<D>;
   constexpr int BN = TL::BN;
@@ -111,14 +149,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int cg = tid % COL_GROUPS;
   const int N = p.N;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
   for (int i = tid; i < BLOCK_M * D; i += THREADS) {
     const int r = i / D, c = i - (i / D) * D;
     const int n = m0 + r;
-    sQ[r * TL::QS + c] = n < N ? to_f32(q[n * p.q_sn + c]) : 0.f;
+    sQ[r * TL::QS + c] = n < N ? q[n * p.q_sn + c] : 0.f;
   }
 
   float m_run[ROWS_PER_THREAD], l_run[ROWS_PER_THREAD];
@@ -137,14 +175,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       const int r = i / D, c = i - (i / D) * D;
       const int n = n0 + r;
       const bool in = n < N;
-      sK[r * TL::KS + c] = in ? to_f32(k[n * p.k_sn + c]) : 0.f;
-      sV[r * TL::VS + c] = in ? to_f32(v[n * p.v_sn + c]) : 0.f;
+      sK[r * TL::KS + c] = in ? k[n * p.k_sn + c] : 0.f;
+      sV[r * TL::VS + c] = in ? v[n * p.v_sn + c] : 0.f;
     }
-    if (tid < BN) {
-      const int n = n0 + tid;
-      const bool ok = n < N && (p.valid == nullptr || p.valid[(long long)b * N + n] != 0);
-      sOk[tid] = ok ? 1.f : 0.f;
-    }
+    if (tid < BN) sOk[tid] = key_ok(p, b, n0 + tid) ? 1.f : 0.f;
     __syncthreads();
 
     // S = Q K^T for this thread's 4 rows x NJ columns
@@ -189,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       for (int j = 0; j < TL::NJ; ++j) {
         const float pij = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += pij;
-        prow[cg + COL_GROUPS * j] = to_f32(from_f32<T>(pij));
+        prow[cg + COL_GROUPS * j] = pij;
       }
 #pragma unroll
       for (int off = 1; off < COL_GROUPS; off <<= 1)
@@ -221,17 +255,230 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int n = m0 + rg * ROWS_PER_THREAD + i;
     if (n >= N) continue;
     const float l_safe = fmaxf(l_run[i], 1e-30f);
-    T* o = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh + n * p.o_sn;
+    float* o = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh + n * p.o_sn;
 #pragma unroll
-    for (int j = 0; j < TL::DJ; ++j) o[cg + COL_GROUPS * j] = from_f32<T>(acc[i][j] / l_safe);
+    for (int j = 0; j < TL::DJ; ++j) o[cg + COL_GROUPS * j] = acc[i][j] / l_safe;
     if (cg == 0) p.lse[(long long)bh * N + n] = m_run[i] + logf(l_safe);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, int BH, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct WgTile {
+  static constexpr int OWN = 64;   // query rows of a block: the M of one wgmma
+  static constexpr int WALK = 64;  // keys per stage: the N of the scores
+  static constexpr int KS = D / 16;  // k16 steps over the head dim
+  static constexpr int OWN_BYTES = OWN * D * 2;
+  static constexpr int WALK_BYTES = WALK * D * 2;
+  // Q, then K and V in two stages each
+  static constexpr int TILES_BYTES = OWN_BYTES + 4 * WALK_BYTES;
+  // after the tiles: the walked keys' mask bytes, two stages
+  static constexpr int MASK_BYTES = 2 * WALK;
+  // 1024 bytes of slack to start the tiles on a swizzle boundary
+  static constexpr size_t SMEM_BYTES = 1024 + TILES_BYTES + MASK_BYTES;
+  static_assert(flash::OutTile<D>::BYTES <= TILES_BYTES, "out leaves through the tiles' memory");
+};
+
+// max over the 4 lanes of a quad: the lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x on the special-function unit (about 2 ulp; 0 for x below -126)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one warpgroup per (batch*head, 64 query rows); it walks every key
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(const Params p) {
+  using namespace flash;
+  using TL = WgTile<D>;
+  using L = Swizzled<D>;
+  constexpr int OWN = TL::OWN, WALK = TL::WALK, KS = TL::KS;
+  extern __shared__ unsigned char smem_wgmma[];
+  unsigned char* smem = align_1024(smem_wgmma);
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sK = sQ + TL::OWN_BYTES;       // 2 stages
+  const uint32_t sV = sK + 2 * TL::WALK_BYTES;  // 2 stages
+  uint8_t* sOk = smem + TL::TILES_BYTES;        // 1 where the key may be attended, 2 stages
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int m0 = blockIdx.y * OWN;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int N = p.N;
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  // one commit group per stage of the walk (the first takes Q along)
+  auto load_walk = [&](int t) {
+    const int st = t & 1;
+    load_tile_async<WALK, D, THREADS>(sK + st * TL::WALK_BYTES, k, p.k_sn, t * WALK, N, tid);
+    load_tile_async<WALK, D, THREADS>(sV + st * TL::WALK_BYTES, v, p.v_sn, t * WALK, N, tid);
+    cp_async_commit();
+  };
+
+  load_tile_async<OWN, D, THREADS>(sQ, q, p.q_sn, m0, N, tid);
+  load_walk(0);
+  if (tid < WALK) sOk[tid] = key_ok(p, b, tid);
+
+  // The thread's two rows of every accumulator are 16 warp + g ("lo") and
+  // + 8 ("hi"): registers 4 j + e with e < 2 are lo, the others hi. m is the
+  // running max of the whole row's q . k (before `scale`: the exponent takes
+  // scale and log2(e) in one factor c), l the running sum of this thread's
+  // columns of p.
+  const float c = p.scale * 1.4426950408889634f;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_lo = NEG_SENTINEL, m_hi = NEG_SENTINEL, l_lo = 0.f, l_hi = 0.f;
+
+  const int n_tiles = (N + WALK - 1) / WALK;
+  for (int t = 0; t < n_tiles; ++t) {
+    // the next tile's mask bytes are read here and stored after this tile's
+    // products, so their latency is hidden
+    bool ok_next = false;
+    if (t + 1 < n_tiles) {
+      load_walk(t + 1);
+      if (tid < WALK) ok_next = key_ok(p, b, (t + 1) * WALK + tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_proxy();
+    __syncthreads();
+    const int st = t & 1;
+    const uint32_t tK = sK + st * TL::WALK_BYTES;
+    const uint32_t tV = sV + st * TL::WALK_BYTES;
+    const uint8_t* tOk = sOk + st * WALK;
+
+    // S = Q K^T: [64 queries][WALK keys]
+    float s[WALK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(s, L::template desc_k_major<OWN>(sQ, kk), L::template desc_k_major<WALK>(tK, kk),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    wgmma_pin(s);
+
+    // the sentinel on masked and ragged keys, and the tile's row max:
+    // register 4 j + e is key column 8 j + 2 tq + e % 2
+    int keep[WALK / 4];
+    float mt_lo = NEG_SENTINEL, mt_hi = NEG_SENTINEL;
+#pragma unroll
+    for (int j = 0; j < WALK / 8; ++j) {
+      const uchar2 ok2 = *reinterpret_cast<const uchar2*>(tOk + 8 * j + 2 * tq);
+      keep[2 * j] = -(int)ok2.x;
+      keep[2 * j + 1] = -(int)ok2.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = select_bits(s[4 * j + e], NEG_SENTINEL, keep[2 * j + (e & 1)]);
+        s[4 * j + e] = x;
+        if (e & 2) mt_hi = fmaxf(mt_hi, x);
+        else mt_lo = fmaxf(mt_lo, x);
+      }
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(mt_lo)), mn_hi = fmaxf(m_hi, quad_max(mt_hi));
+    // 2^(c (-1e30 - m)) is 0 after a tile whose keys were all masked, and
+    // 2^0 = 1 while every key so far was (l and o are 0 then)
+    const float alpha_lo = exp2_approx(c * (m_lo - mn_lo));
+    const float alpha_hi = exp2_approx(c * (m_hi - mn_hi));
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+
+    // P = 2^(c s - c m) in place, one multiply-add and one exp2 a score,
+    // then the select: where m is still the sentinel the exponent of a
+    // masked key is the rounding error of -1e30 c, anything from -1e22 to
+    // 1e22. The row sums add the fp32 p.
+    const float mc_lo = c * mn_lo, mc_hi = c * mn_hi;
+    float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < WALK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mc = (e & 2) ? mc_hi : mc_lo;
+        const float pij =
+            select_bits(exp2_approx(fmaf(s[4 * j + e], c, -mc)), keep[2 * j + (e & 1)]);
+        s[4 * j + e] = pij;
+        if (e & 2) rs_hi += pij;
+        else rs_lo += pij;
+      }
+    }
+    l_lo = l_lo * alpha_lo + rs_lo;
+    l_hi = l_hi * alpha_hi + rs_hi;
+    uint32_t pa[WALK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WALK / 16; ++kk) acc_to_a(pa[kk], &s[8 * kk]);  // rounds P to bf16
+
+    // O = alpha O + P V: the keys are the contraction dim, V enters as a
+    // transposed B operand. The last batch into o was waited for at the end
+    // of the step before, so ordinary instructions may rescale it here; the
+    // fence orders them before the products.
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha_lo;
+      o[4 * j + 1] *= alpha_lo;
+      o[4 * j + 2] *= alpha_hi;
+      o[4 * j + 3] *= alpha_hi;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WALK / 16; ++kk)
+      wgmma_rs(o, pa[kk], L::template desc_mn_major<WALK>(tV, kk));
+    wgmma_commit();
+    wgmma_wait();
+    wgmma_pin(o);
+    if (t + 1 < n_tiles && tid < WALK) sOk[((t + 1) & 1) * WALK + tid] = ok_next;
+    __syncthreads();  // this stage is refilled by the next step's prefetch
+  }
+
+  // every warp's products are behind the loop's last barrier, so the tiles
+  // are free: out leaves through a plain tile at the start of the block's
+  // memory, each warp its own 16 rows, a whole row at a time
+  const float ls_lo = fmaxf(quad_sum(l_lo), 1e-30f), ls_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+  bf16* out_tile = reinterpret_cast<bf16*>(smem);
+  store_acc_to_tile<D>(out_tile, o, 1.f / ls_lo, 1.f / ls_hi, warp, lane);
+  __syncwarp();
+  copy_rows_out<D>(static_cast<bf16*>(p.out) + b * p.o_sb + h * p.o_sh, p.o_sn, out_tile, warp,
+                   m0 + 16 * warp, N, lane);
+  if (tq == 0) {
+    const int row_lo = m0 + 16 * warp + g, row_hi = row_lo + 8;
+    float* lse = p.lse + (long long)bh * N;
+    // the sentinel is not scaled: a row whose keys are all masked keeps -1e30
+    if (row_lo < N) lse[row_lo] = (m_lo == NEG_SENTINEL ? m_lo : m_lo * p.scale) + logf(ls_lo);
+    if (row_hi < N) lse[row_hi] = (m_hi == NEG_SENTINEL ? m_hi : m_hi * p.scale) + logf(ls_hi);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
+cudaError_t launch_f32(const Params& p, int BH, cudaStream_t stream) {
   using TL = Tile<D>;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)TL::SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -240,12 +487,38 @@ cudaError_t launch(const Params& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(const Params& p, int BH, int D, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_wgmma(const Params& p, int BH, cudaStream_t stream) {
+  using TL = WgTile<D>;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)TL::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (p.N + TL::OWN - 1) / TL::OWN);
+  kernel<<<grid, THREADS, TL::SMEM_BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// dynamic shared memory of a block and the blocks of it an SM holds at once
+template <int D>
+cudaError_t occupancy_wgmma(int* smem_bytes, int* blocks_per_sm) {
+  using TL = WgTile<D>;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)TL::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)TL::SMEM_BYTES;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS,
+                                                       TL::SMEM_BYTES);
+}
+
+// fp32: the FMA kernel; bf16: the tensor-core kernel
+cudaError_t dispatch(const Params& p, int BH, int D, bool bf16_inputs, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(p, BH, stream);
-    case 64: return launch<T, 64>(p, BH, stream);
-    case 128: return launch<T, 128>(p, BH, stream);
+    case 32: return bf16_inputs ? launch_wgmma<32>(p, BH, stream) : launch_f32<32>(p, BH, stream);
+    case 64: return bf16_inputs ? launch_wgmma<64>(p, BH, stream) : launch_f32<64>(p, BH, stream);
+    case 128:
+      return bf16_inputs ? launch_wgmma<128>(p, BH, stream) : launch_f32<128>(p, BH, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -280,7 +553,18 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_dh<float>(p, B * H, D, s);
-  if (dtype == 1) return (int)dispatch_dh<__nv_bfloat16>(p, B * H, D, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(p, B * H, D, dtype == 1, s);
+}
+
+// Occupancy of the bf16 kernel at head dim D on the current device: the
+// dynamic shared memory of one block, and how many blocks an SM holds at once
+// given its registers and shared memory. Returns the cudaError_t (0 = success).
+extern "C" int flash_fwd_occupancy(int D, int* smem_bytes, int* blocks_per_sm) {
+  switch (D) {
+    case 32: return (int)occupancy_wgmma<32>(smem_bytes, blocks_per_sm);
+    case 64: return (int)occupancy_wgmma<64>(smem_bytes, blocks_per_sm);
+    case 128: return (int)occupancy_wgmma<128>(smem_bytes, blocks_per_sm);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -9,11 +9,12 @@ differentiable ``flash_attention`` over them.
 
 Each source is built with ``nvcc`` for ``sm_90a`` at first use into
 ``_build/`` (listed in .gitignore), keyed by the content hash of the source
-and of every header beside it, and bound with ctypes. The bf16 backward
-kernels run on the tensor cores (``wgmma``) and copy 16 bytes at a time, so
-their operands must be 16-byte aligned (``misaligned_operands``); fp32 keeps
-FMA kernels, which take any alignment. A wrapper runs the plain version only
-for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
+and of every header beside it, and bound with ctypes. The bf16 kernels,
+forward and backward, run on the tensor cores (``wgmma``) and copy 16 bytes
+at a time, so their operands must be 16-byte aligned
+(``misaligned_operands``); fp32 keeps FMA kernels, which take any alignment.
+A wrapper runs the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -129,6 +130,8 @@ def _library(name: str = "flash_fwd") -> ctypes.CDLL:
         lib.flash_fwd.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
                                   + [ctypes.c_float, ptr])
         lib.flash_fwd.restype = i32
+        lib.flash_fwd_occupancy.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.flash_fwd_occupancy.restype = i32
     else:
         # q, k, v, dout, lse, delta, valid, outputs..., device, B, H, N, D,
         # dtype, strides (int64[21]), scale, stream
@@ -141,22 +144,28 @@ def _library(name: str = "flash_fwd") -> ctypes.CDLL:
     return lib
 
 
-def backward_occupancy() -> dict:
-    """Of each bf16 backward kernel at each head dim, on the current card:
-    the dynamic shared memory of one block and the blocks an SM holds at once
+def _occupancy(fn, *args) -> dict:
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(*args, ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
+    return {"smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
+
+
+def forward_occupancy() -> dict:
+    """Of the bf16 forward kernel at each head dim, on the current card: the
+    dynamic shared memory of one block and the blocks an SM holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 128 threads a block)."""
-    lib = _library("flash_bwd")
-    table = {}
-    for kernel in ("dkdv", "dq"):
-        for head_dim in SUPPORTED_HEAD_DIMS:
-            smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-            err = lib.flash_bwd_occupancy(int(kernel == "dq"), head_dim,
-                                          ctypes.byref(smem), ctypes.byref(blocks))
-            if err != 0:
-                raise RuntimeError(f"flash_bwd_occupancy failed with CUDA error {err}")
-            table[f"flash_bwd_{kernel}_bf16_dh{head_dim}"] = {
-                "smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
-    return table
+    fn = _library("flash_fwd").flash_fwd_occupancy
+    return {f"flash_fwd_bf16_dh{head_dim}": _occupancy(fn, head_dim)
+            for head_dim in SUPPORTED_HEAD_DIMS}
+
+
+def backward_occupancy() -> dict:
+    """The same of each bf16 backward kernel."""
+    fn = _library("flash_bwd").flash_bwd_occupancy
+    return {f"flash_bwd_{kernel}_bf16_dh{head_dim}": _occupancy(fn, int(kernel == "dq"), head_dim)
+            for kernel in ("dkdv", "dq") for head_dim in SUPPORTED_HEAD_DIMS}
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,8 +203,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def misaligned_operands(**operands: torch.Tensor) -> list:
-    """Names of the [B, H, N, Dh] operands that the bf16 backward kernels
-    cannot copy 16 bytes at a time: a base address or a batch, head or row
+    """Names of the [B, H, N, Dh] operands that the bf16 kernels cannot copy
+    16 bytes at a time: a base address or a batch, head or row
     stride (of a dim longer than 1) that is not a multiple of 16 bytes. Reads
     only addresses and strides, so it takes tensors on any device."""
     bad = []
@@ -209,7 +218,7 @@ def misaligned_operands(**operands: torch.Tensor) -> list:
 
 def require_aligned(who: str, **operands: torch.Tensor) -> None:
     """Raise for operands that ``misaligned_operands`` names: there is no
-    slower path behind the bf16 backward kernels."""
+    slower path behind the bf16 kernels."""
     bad = misaligned_operands(**operands)
     if bad:
         raise ValueError(f"{who}: {bad} not 16-byte aligned (base address and batch, "
@@ -222,15 +231,18 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention forward with its logsumexp: (out [B, H, N, Dh], lse [B, H, N]).
 
     CPU tensors take ``flash_forward_reference``. CUDA tensors launch the
-    kernel on the current stream, or raise (no fallback). ``out`` is a
-    [B, H, N, Dh] view of a [B, N, H, Dh] buffer, so merging the heads
-    afterwards costs no copy."""
+    kernel on the current stream, or raise (no fallback): bf16 operands must
+    be 16-byte aligned (``misaligned_operands``). ``out`` is a [B, H, N, Dh]
+    view of a [B, N, H, Dh] buffer, so merging the heads afterwards costs no
+    copy."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, valid)
     _check_inputs(q, k, v, valid)
-    lib = _library("flash_fwd")
     B, H, N, Dh = q.shape
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if q.dtype == torch.bfloat16:
+        require_aligned("flash_forward", q=q, k=k, v=v, out=out)
+    lib = _library("flash_fwd")
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = lib.flash_fwd(

@@ -1,7 +1,8 @@
 """The port's flash-attention forward against the JAX package: the plain
 PyTorch version against the Pallas kernel in interpret mode (out and lse),
-the dispatch function against the JAX one, and the wrapper's refusal to
-fall back. The CUDA kernel itself is tested in test_torch_kernels_gpu.py."""
+the dispatch function against the JAX one, the wrapper's refusal to fall
+back, the alignment the bf16 kernel asks of its operands, and the build key.
+The CUDA kernel itself is tested in test_torch_kernels_gpu.py."""
 
 from unittest import mock
 
@@ -54,6 +55,92 @@ def test_reference_matches_pallas_interpret(shape, mask):
     if mask == "row_all_masked":
         assert np.all(t_out[0].numpy() == 0.0)
         assert np.all(np.asarray(j_out)[0] == 0.0)
+
+
+def _compare_with_pallas_interpret(q, k, v, kpad):
+    """flash_forward_reference against the Pallas kernel in interpret mode on
+    fp32 inputs: out and lse within 2e-5 (another order of summation)."""
+    B, H, N, _ = q.shape
+    j_out, j_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  None if kpad is None else jnp.asarray(kpad),
+                                  interpret=True)
+    valid = None if kpad is None else torch.from_numpy(~kpad)
+    t_out, t_lse = t_fa.flash_forward_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), valid)
+    j_lse = np.asarray(j_lse)[:, :N, 0].reshape(B, H, N)
+    assert np.all(np.isfinite(t_out.numpy())) and np.all(np.isfinite(t_lse.numpy()))
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(t_lse.numpy(), j_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("mask", ["none", "keys"])
+@pytest.mark.parametrize("N", [15, 16, 17, 145])
+def test_reference_matches_pallas_interpret_at_the_16_row_edges(N, mask):
+    """The sequence lengths around the 16-row pieces the tensor-core forward
+    kernel works in: the plain version it is held to on the card agrees with
+    the Pallas kernel there too."""
+    shape = (2, 2, N, 64)
+    q, k, v = _qkv(shape, seed=40 + N)
+    _compare_with_pallas_interpret(q, k, v, _key_padding(2, N, mask, seed=N))
+
+
+@pytest.mark.parametrize("n_first_masked", [64, 128])
+def test_reference_matches_pallas_interpret_after_a_fully_masked_first_tile(n_first_masked):
+    """Batch row 0 cannot attend the first 64 keys (one stage of the CUDA
+    kernel's walk) or the first 128 (one tile of the Pallas kernel's): the
+    running max leaves the -1e30 sentinel only at the next tile, where
+    exp(-1e30 - m) must read 0."""
+    shape = (2, 2, 150, 64)
+    q, k, v = _qkv(shape, seed=50 + n_first_masked)
+    kpad = np.zeros((2, 150), dtype=bool)
+    kpad[0, :n_first_masked] = True
+    _compare_with_pallas_interpret(q, k, v, kpad)
+
+
+def _fused_qkv_views(B, N, H, Dh, dtype):
+    qkv = torch.zeros((B, N, 3, H, Dh), dtype=dtype)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+@pytest.mark.parametrize("Dh", t_fa.SUPPORTED_HEAD_DIMS)
+def test_alignment_check_takes_the_forward_operands(Dh):
+    """q, k, v as the denoiser hands them over (head views of the fused qkv
+    projection, the sampler's CFG-doubled batch) and the [B, N, H, Dh] out
+    buffer flash_forward allocates: 16-byte aligned at every head dim."""
+    q, k, v = _fused_qkv_views(16, 133, 8, Dh, torch.bfloat16)
+    out = torch.empty((16, 133, 8, Dh), dtype=torch.bfloat16).transpose(1, 2)
+    assert t_fa.misaligned_operands(q=q, k=k, v=v, out=out) == []
+    t_fa.require_aligned("flash_forward", q=q, k=k, v=v, out=out)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "out"])
+def test_alignment_check_refuses_a_misaligned_forward_operand(operand):
+    """A bf16 operand 8 bytes into a row of a wider buffer is named and
+    refused, whichever it is; the same view in fp32 steps by 4 elements."""
+    ok = torch.zeros((2, 2, 40, 64), dtype=torch.bfloat16)
+    off = torch.zeros((2, 2, 40, 72), dtype=torch.bfloat16)[..., 4:68]
+    assert off.stride(-1) == 1 and off.data_ptr() % 16 == 8
+    operands = {name: (off if name == operand else ok) for name in ("q", "k", "v", "out")}
+    assert t_fa.misaligned_operands(**operands) == [operand]
+    with pytest.raises(ValueError, match=rf"flash_forward: \['{operand}'\] not 16-byte aligned"):
+        t_fa.require_aligned("flash_forward", **operands)
+    assert t_fa.misaligned_operands(
+        **{operand: torch.zeros((2, 2, 40, 72))[..., 4:68]}) == []
+
+
+@pytest.mark.parametrize("name", sorted(t_fa.SOURCES))
+def test_build_tag_of_each_source_follows_the_shared_header(name, tmp_path):
+    """flash_fwd.cu and flash_bwd.cu both include csrc/flash_common.cuh, and
+    the key of each built library changes with that header alone."""
+    source = t_fa.SOURCES[name]
+    assert '#include "flash_common.cuh"' in source.read_text()
+    copy = tmp_path / source.name
+    copy.write_text(source.read_text())
+    header = tmp_path / "flash_common.cuh"
+    header.write_text((source.parent / "flash_common.cuh").read_text())
+    tag = t_fa.source_tag(copy)
+    header.write_text(header.read_text() + "// changed\n")
+    assert t_fa.source_tag(copy) != tag
 
 
 def test_reference_bf16_matches_pallas_interpret():

@@ -67,6 +67,91 @@ def test_flash_fwd_takes_strided_heads(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_masked", [0, 5])
+@pytest.mark.parametrize("N", [15, 16, 17, 145])
+def test_flash_fwd_at_the_16_row_edges(cuda, N, n_masked, dtype):
+    """A warp of the tensor-core kernel owns 16 query rows and a product step
+    takes 16 keys: one short of that, exactly that, one over, and one over
+    nine (144 + 1, into a third 64-key stage)."""
+    q, k, v, valid = _inputs(cuda, (2, 2, N, 64), dtype, n_masked, seed=12)
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_after_a_fully_masked_first_tile(cuda, dtype):
+    """The first 64 keys masked, valid keys after them: the running max
+    leaves the sentinel in the second stage, and exp(-1e30 - m) must read 0."""
+    shape = (2, 2, 150, 64)
+    q, k, v, _ = _inputs(cuda, shape, dtype, 0, seed=13)
+    valid = torch.ones((2, 150), dtype=torch.bool, device=cuda)
+    valid[0, :64] = False
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v, valid)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_takes_the_sampler_strides(cuda):
+    """The mvp sampler's operands at full width: q, k, v as head views of the
+    fused qkv projection [16, 133, 3, 8, 64] (the CFG-doubled batch)."""
+    B, N, H, Dh = 16, 133, 8, 64
+    g = torch.Generator(device=cuda).manual_seed(14)
+    qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not t_fa.misaligned_operands(q=q, k=k, v=v)
+    out, lse = t_fa.flash_forward(q, k, v)
+    assert out.transpose(1, 2).is_contiguous()  # a [B, N, H, Dh] buffer
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_raises_on_a_misaligned_view(cuda):
+    """bf16 operands off the 16-byte grid are refused, not sent down a slower
+    path; fp32 goes through the FMA kernel, which takes any alignment."""
+    shape = (2, 2, 40, 64)
+    q, k, v, _ = _inputs(cuda, shape, torch.bfloat16, 0, seed=15)
+    wide = torch.zeros((2, 2, 40, 72), dtype=torch.bfloat16, device=cuda)
+    wide[..., 4:68] = k
+    k_off = wide[..., 4:68]
+    assert k_off.stride(-1) == 1 and k_off.data_ptr() % 16 == 8
+    before = t_fa.flash_forward.launches
+    with pytest.raises(ValueError, match=r"flash_forward: \['k'\] not 16-byte aligned"):
+        t_fa.flash_forward(q, k_off, v)
+    assert t_fa.flash_forward.launches == before
+    wide32 = torch.zeros((2, 2, 40, 65), dtype=torch.float32, device=cuda)
+    wide32[..., 1:] = k.float()
+    out, lse = t_fa.flash_forward(q.float(), wide32[..., 1:], v.float())
+    ref_out, ref_lse = t_fa.flash_forward_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n_masked", [((16, 8, 133, 64), 0), ((8, 8, 421, 128), 0),
+                                            ((2, 4, 1152, 128), 51)])
+def test_flash_fwd_is_bit_identical_from_call_to_call(cuda, shape, n_masked):
+    """Each output row has one owner block and a fixed order of summation."""
+    q, k, v, valid = _inputs(cuda, shape, torch.bfloat16, n_masked, seed=16)
+    first = [t.clone() for t in t_fa.flash_forward(q, k, v, valid)]
+    second = t_fa.flash_forward(q, k, v, valid)
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
 def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
     q, k, v, _ = _inputs(cuda, (2, 2, 40, 32), torch.bfloat16, 0)
     kpm = torch.zeros((2, 40), dtype=torch.bool, device=cuda)
