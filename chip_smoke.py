@@ -13,16 +13,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                smallest launches); the flash-attention forward kernel against
                its plain PyTorch version (out and lse), then the two backward
                kernels (dK/dV, dQ) against theirs (dq, dk, dv), at the mvp
-               sampling and training, flagship and t2i shapes, masked and
-               unmasked, bf16 and fp32 (TF32 off), with each kernel's time,
-               the plain version's, SDPA's forward or backward (a yardstick
-               the port never calls) and the least time the card could take;
-               two calls of a kernel must give the same bits; the forward
-               with the sampler's strides and the backward pair with the
-               train step's (head views of a fused qkv buffer, dO a
-               [B, N, H, Dh] buffer); all three, untimed, at the 16-row edges
-               N = 15, 16, 17, 145, masked and unmasked; the forward at
-               N = 128, 133, 192 (what the ragged edge costs);
+               sampling and training, flagship training and sampling and t2i
+               shapes, masked and unmasked, bf16 and fp32 (TF32 off), with each
+               kernel's time, the plain version's, SDPA's forward or backward
+               (a yardstick the port never calls) and the least time the card
+               could take; two calls of a kernel must give the same bits; the
+               forward with the sampler's strides and the backward pair with
+               the train step's (head views of a fused qkv buffer, dO a
+               [B, N, H, Dh] buffer), at mvp and at flagship width (the
+               guided sampler's backward has the train step's strides); all
+               three, untimed, at the 16-row edges N = 15, 16, 17, 145, masked
+               and unmasked; the forward at N = 128, 133, 192 (what the ragged
+               edge costs);
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -35,11 +37,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                each of the three kernels must launch exactly 8 times per step;
                finite losses, parameters that stay put at LR 0 and move after,
                an EMA that moves, and one full-width gradient with and without
-               the kernels that agree.
+               the kernels that agree;
+  6. spec8_train — the flagship (specificity8: d=1024, 16 layers, 8 heads of
+               128, patch VideoVAE, 288 mouth-crop tokens, N = 421) train step
+               the same way: B=8, bf16 moments, reconstruction every 8th step;
+               2 warm-up steps, then 16 timed steps, two of them with the
+               decode: exactly 16 launches of each kernel per step, loss_recon
+               > 0 on exactly the decode steps, finite losses, and one
+               full-width gradient of a decode step with and without the
+               kernels that agree and reach the encoders;
+  7. spec8_v2a — flagship sampling through build_components +
+               sample_one_direction: B=8, 50 DDIM steps, batched CFG, mouth
+               tokens cut from the frames: exactly 50 x 16 = 800 forward
+               launches; one denoise_tokens forward with mouth tokens, with
+               and without the kernel, must agree;
+  8. spec8_v2a_guided — the same batch with sync guidance (scale 0.5, source
+               mouth), once under ddim and once under dpmpp_2m: per batch 1600
+               forward launches and 800 of each backward kernel (the gradient
+               w.r.t. the audio latent runs through them), an output that
+               differs from the unguided one, no parameter left with a .grad.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
-`python -m multimodal_diffusion_torch.tools.profile_train`.
+`python -m multimodal_diffusion_torch.tools.profile_train` (each takes
+`--config specificity8`).
 """
 
 from __future__ import annotations
@@ -58,13 +79,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # (name, [B, H, N, Dh], masked keys in batch row 0): the mvp sampling call
-# (CFG-doubled batch 16), the mvp train step (batch 8), the flagship training
-# shape, the t2i-512 core (1152 padded from 1101: 51 keys masked), and one
-# batch row fully masked
+# (CFG-doubled batch 16), the mvp train step (batch 8), the flagship train
+# step and guided forward (batch 8), the flagship sampling call (batch 16),
+# the t2i-512 core (1152 padded from 1101: 51 keys masked), and one batch row
+# fully masked
 KERNEL_CASES = [
     ("mvp", (16, 8, 133, 64), 0),
     ("mvp_train", (8, 8, 133, 64), 0),
     ("flagship", (8, 8, 421, 128), 0),
+    ("flagship_sample", (16, 8, 421, 128), 0),
     ("t2i", (2, 4, 1152, 128), 51),
     ("all_masked_row", (2, 8, 133, 64), 133),
 ]
@@ -79,10 +102,21 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # kernels work in, and lengths around the 64-row tiles (mvp has N = 133)
 FWD_STRIDED_SHAPE = (16, 8, 133, 64)
 BWD_STRIDED_SHAPE = (8, 8, 133, 64)
+# (name, shape, backward too): fused-qkv head views at mvp and flagship width;
+# the flagship train step and the guided sampler's B-sized forward + backward
+# share one shape and one set of strides
+STRIDED_CASES = [
+    ("mvp_qkv_strides", FWD_STRIDED_SHAPE, False),
+    ("mvp_train_qkv_strides", BWD_STRIDED_SHAPE, True),
+    ("flagship_sample_qkv_strides", (16, 8, 421, 128), False),
+    ("flagship_train_qkv_strides", (8, 8, 421, 128), True),
+]
 EDGE_N = (15, 16, 17, 145)
 RAGGED_N = (128, 133, 192)
 V2A_CLIPS, V2A_STEPS = 8, 50
 TRAIN_CLIPS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
+SPEC8_TRAIN_STEPS = 16  # after TRAIN_WARMUP: steps 3..18, the decode on 8 and 16
+SYNC_GUIDANCE = {"sync_guidance_scale": 0.5, "sync_guidance_source": "mouth"}
 # one full-width train-loss gradient (eval mode, fixed batch and draws) with
 # the kernels vs dense attention, bf16: max |diff| / max |dense| over every
 # qkv weight grad, and the relative difference of the global grad norm. The
@@ -94,6 +128,15 @@ GRAD_REL_TOL = 2.5e-2
 # Both paths round activations to bf16 (relative 2^-8 = 3.9e-3) after each of
 # 8 layers; the H100 read 3.9e-3 (eps_v) and 4.5e-3 (eps_a), see PERF.md
 DENOISE_REL_TOL = 1.5e-2
+# the same two checks at flagship width: 16 layers round twice as often as
+# mvp's 8, so errors that add like a random walk grow by about sqrt(2): the
+# gradient (of a decode step) gets 3e-2 and the denoiser forward (with mouth
+# tokens) 2e-2 on eps_v and eps_a. h_m, the mouth tokens' features, is the
+# final norm's bf16 output before any head, 288 rows a sample: its largest
+# difference is a few bf16 ulps (2^-8 each) of its largest magnitude, 4e-2;
+# readings in PERF.md
+SPEC8_GRAD_REL_TOL = 3e-2
+SPEC8_DENOISE_REL_TOL = {"eps_v": 2e-2, "eps_a": 2e-2, "h_m": 4e-2}
 
 
 def emit(obj) -> None:
@@ -310,14 +353,13 @@ def stride_and_edge_cases(fa, cycles_per_s):
     import torch
 
     dev = torch.device("cuda")
-    for name, shape in (("mvp_qkv_strides", FWD_STRIDED_SHAPE),
-                        ("mvp_train_qkv_strides", BWD_STRIDED_SHAPE)):
+    for name, shape, with_backward in STRIDED_CASES:
         B, H, N, Dh = shape
         g = torch.Generator(device=dev).manual_seed(50)
         qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=dev).to(torch.bfloat16)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         out, lse, _ = forward_case(fa, name, q, k, v, None, [N] * B, cycles_per_s)
-        if shape == BWD_STRIDED_SHAPE:
+        if with_backward:
             dout = torch.randn((B, N, H, Dh), generator=g, device=dev).to(
                 torch.bfloat16).transpose(1, 2)
             backward_case(fa, name, q, k, v, None, out, lse, dout, [N] * B, cycles_per_s)
@@ -395,7 +437,6 @@ def v2a_phase(fa):
     import torch
 
     from multimodal_diffusion_torch.tools.profile_v2a import v2a_workload
-    from multimodal_diffusion_torch.utils.io import latent_shapes_from_config
 
     t0 = time.perf_counter()
     cfg, model, run = v2a_workload(V2A_CLIPS, V2A_STEPS)
@@ -411,10 +452,7 @@ def v2a_phase(fa):
     if launches != expected:
         raise AssertionError(f"flash_fwd launched {launches} times on the v2a path, "
                              f"expected {expected}")
-    L = latent_shapes_from_config(cfg, V2A_CLIPS)["audio"][-1]
-    if wav.shape != (V2A_CLIPS, L) or not np.all(np.isfinite(wav)) or np.abs(wav).max() > 1:
-        raise AssertionError(f"bad v2a output: shape {wav.shape}, finite "
-                             f"{np.all(np.isfinite(wav))}, max |x| {np.abs(wav).max()}")
+    check_wav(wav, cfg, "v2a")
 
     times = []
     for _ in range(3):
@@ -473,14 +511,11 @@ def train_phase(fa):
     del before
     ema_before = {k: v.clone() for k, v in bundle.state.ema.items()}
 
-    fa.flash_forward.launches = 0
-    fa.flash_backward.dkdv_launches = fa.flash_backward.dq_launches = 0
+    reset_launch_counts(fa)
     torch.cuda.reset_peak_memory_stats()
     logs = []
     run(TRAIN_STEPS, log_fn=lambda step, m: logs.append(m))
-    launches = {"flash_fwd": fa.flash_forward.launches,
-                "flash_bwd_dkdv": fa.flash_backward.dkdv_launches,
-                "flash_bwd_dq": fa.flash_backward.dq_launches}
+    launches = launch_counts(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = TRAIN_STEPS * cfg["model"]["core"]["n_layers"]
     if any(n != expected for n in launches.values()):
@@ -497,28 +532,13 @@ def train_phase(fa):
     step_s = [1.0 / m["steps_per_sec"] for m in logs]
     median_s = statistics.median(step_s)
 
-    # one full-width gradient of the train loss, eval mode (no dropout), fixed
-    # batch and draws, with the kernels and with dense attention
-    model = bundle.model.eval()
-    sc = bundle.step_config
-    draws = TT.draw_step_randomness(torch.Generator(device="cuda").manual_seed(7), sc)
-    dev_batch = TT.batch_to_device(batch, bundle.device)
-    grads = {}
-    for use_kernel in (True, False):
-        loss, _ = TT.train_loss(model, dataclasses.replace(sc, use_kernel=use_kernel),
-                                bundle.abar_v, bundle.abar_a, dev_batch, 0.0, draws)
-        named = [(n, p) for n, p in model.named_parameters()]
-        gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-        grads[use_kernel] = {n: g for (n, _), g in zip(named, gs) if g is not None}
-    model.train()
-    qkv = [n for n in grads[False] if n.endswith("attn.qkv.weight")]
-    qkv_rel = max(float((grads[True][n] - grads[False][n]).abs().max())
-                  / float(grads[False][n].abs().max()) for n in qkv)
-    norms = {k: float(TT.global_norm(list(g.values()))) for k, g in grads.items()}
+    # one full-width gradient of the train loss, with the kernels and with
+    # dense attention
+    grads, n_qkv, qkv_rel, norms = kernel_vs_dense_grads(TT, bundle, batch)
     norm_rel = abs(norms[True] - norms[False]) / norms[False]
-    if len(qkv) != cfg["model"]["core"]["n_layers"] or max(qkv_rel, norm_rel) > GRAD_REL_TOL:
+    if n_qkv != cfg["model"]["core"]["n_layers"] or max(qkv_rel, norm_rel) > GRAD_REL_TOL:
         raise AssertionError(f"train grads with the kernels vs dense: qkv {qkv_rel}, "
-                             f"norm {norm_rel} (tol {GRAD_REL_TOL}, {len(qkv)} qkv grads)")
+                             f"norm {norm_rel} (tol {GRAD_REL_TOL}, {n_qkv} qkv grads)")
     del grads
 
     emit({"phase": "train", "config": "mvp", "clips": TRAIN_CLIPS,
@@ -533,6 +553,243 @@ def train_phase(fa):
                          "rel_tol": GRAD_REL_TOL},
           "peak_mem_gb": peak_gb})
     return launches
+
+
+def reset_launch_counts(fa) -> None:
+    fa.flash_forward.launches = 0
+    fa.flash_backward.dkdv_launches = fa.flash_backward.dq_launches = 0
+
+
+def launch_counts(fa) -> dict:
+    return {"flash_fwd": fa.flash_forward.launches,
+            "flash_bwd_dkdv": fa.flash_backward.dkdv_launches,
+            "flash_bwd_dq": fa.flash_backward.dq_launches}
+
+
+def kernel_vs_dense_grads(TT, bundle, batch, with_recon=None):
+    """One full-width gradient of the train loss (eval mode: no dropout; a
+    fixed batch and draws; audio the target) with the kernels and with dense
+    attention: {use_kernel: {parameter name: grad}}, the largest relative
+    difference over the qkv weight grads, and that of the global grad norm."""
+    import torch
+
+    model = bundle.model.eval()
+    sc = bundle.step_config
+    draws = TT.draw_step_randomness(torch.Generator(device="cuda").manual_seed(7), sc)
+    dev_batch = TT.batch_to_device(batch, bundle.device)
+    grads = {}
+    for use_kernel in (True, False):
+        loss, _ = TT.train_loss(model, dataclasses.replace(sc, use_kernel=use_kernel),
+                                bundle.abar_v, bundle.abar_a, dev_batch, 0.0, draws, with_recon)
+        named = [(n, p) for n, p in model.named_parameters()]
+        gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        grads[use_kernel] = {n: g for (n, _), g in zip(named, gs) if g is not None}
+    model.train()
+    qkv = [n for n in grads[False] if n.endswith("attn.qkv.weight")]
+    qkv_rel = max(float((grads[True][n] - grads[False][n]).abs().max())
+                  / float(grads[False][n].abs().max()) for n in qkv)
+    norms = {k: float(TT.global_norm(list(g.values()))) for k, g in grads.items()}
+    return grads, len(qkv), qkv_rel, norms
+
+
+def spec8_train_phase(fa):
+    """The flagship train step at full width through create_trainer +
+    run_training."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.tools.profile_train import train_workload
+    from multimodal_diffusion_torch.train import trainer as TT
+
+    t0 = time.perf_counter()
+    cfg, bundle, batch, run = train_workload(TRAIN_CLIPS, config="specificity8")
+    setup_s = time.perf_counter() - t0
+    sc = bundle.step_config
+    if (sc.recon_every, sc.recon_weight, sc.sync_source) != (8, 1.0, "video") or \
+            bundle.state.optimizer.mv_dtype != torch.bfloat16 or not bundle.model.cfg.mouth_enabled:
+        raise AssertionError(f"not the flagship step: {sc}")
+    t0 = time.perf_counter()
+    run(TRAIN_WARMUP)
+    warmup_s = time.perf_counter() - t0
+
+    reset_launch_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    run(SPEC8_TRAIN_STEPS, log_fn=lambda step, m: logs.append((step, m)))
+    launches = launch_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = cfg["model"]["core"]["n_layers"]
+    expected = SPEC8_TRAIN_STEPS * n_layers
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"kernel launches on the flagship train path {launches}, "
+                             f"expected {expected} each")
+    if [step for step, _ in logs] != list(range(TRAIN_WARMUP + 1,
+                                                TRAIN_WARMUP + SPEC8_TRAIN_STEPS + 1)):
+        raise AssertionError(f"logged steps {[step for step, _ in logs]}")
+    step_s = {True: [], False: []}
+    for step, m in logs:
+        decode = step % sc.recon_every == 0
+        if not all(np.isfinite([m[k] for k in m])):
+            raise AssertionError(f"non-finite metric at step {step}: {m}")
+        if (m["loss_recon"] > 0.0) != decode:
+            raise AssertionError(f"step {step}: loss_recon {m['loss_recon']}, decode {decode}")
+        if not (m["loss_sync"] > 0.0 and m["loss_align"] > 0.0):
+            raise AssertionError(f"step {step}: the sync or alignment loss is off: {m}")
+        step_s[decode].append(1.0 / m["steps_per_sec"])
+    if len(step_s[True]) != 2:
+        raise AssertionError(f"{len(step_s[True])} decode steps among the timed ones, expected 2")
+    # a training run's mean step: K - 1 steps without the decode and one with
+    # it, the latter taken from the second decode step (the first also pays
+    # for the decoder's first use on the card)
+    every = sc.recon_every
+    mean_step_s = (statistics.median(step_s[False]) * (every - 1) + step_s[True][1]) / every
+
+    # one full-width gradient of a decode step, kernels vs dense attention
+    grads, n_qkv, qkv_rel, norms = kernel_vs_dense_grads(TT, bundle, batch, with_recon=True)
+    norm_rel = abs(norms[True] - norms[False]) / norms[False]
+    if n_qkv != n_layers or max(qkv_rel, norm_rel) > SPEC8_GRAD_REL_TOL:
+        raise AssertionError(f"flagship train grads with the kernels vs dense: qkv {qkv_rel}, "
+                             f"norm {norm_rel} (tol {SPEC8_GRAD_REL_TOL}, {n_qkv} qkv grads)")
+    encoder_grads = {}
+    for name in ("vid_vae.patch_embed.weight", "vid_vae.enc.0.conv.weight",
+                 "aud_codec.pre0.weight"):
+        g = grads[True].get(name)
+        if g is None or not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+            raise AssertionError(f"no gradient reached {name} on a decode step")
+        encoder_grads[name] = float(g.abs().max())
+    del grads
+
+    emit({"phase": "spec8_train", "config": "mvp+specificity8", "clips": TRAIN_CLIPS,
+          "tokens": 421, "compute_dtype": "bfloat16", "moments_dtype": "bfloat16",
+          "recon_every": every, "setup_s": setup_s, "warmup_steps": TRAIN_WARMUP,
+          "warmup_s": warmup_s, "step_s": [1.0 / m["steps_per_sec"] for _, m in logs],
+          "median_norecon_step_s": statistics.median(step_s[False]),
+          "recon_step_s": step_s[True], "median_recon_step_s": statistics.median(step_s[True]),
+          "warm_recon_step_s": step_s[True][1], "mean_step_s": mean_step_s,
+          "train_clips_per_s": TRAIN_CLIPS / mean_step_s,
+          "first_loss": logs[0][1]["loss"], "last_loss": logs[-1][1]["loss"],
+          "loss_recon": [m["loss_recon"] for _, m in logs],
+          "grad_norms": [m["grad_norm"] for _, m in logs], "launches": launches,
+          "launches_expected": expected,
+          "grad_check": {"with_recon": True, "qkv_weight_rel_err": qkv_rel,
+                         "grad_norm_rel_err": norm_rel, "grad_norm_kernel": norms[True],
+                         "grad_norm_dense": norms[False], "rel_tol": SPEC8_GRAD_REL_TOL,
+                         "encoder_grad_max_abs": encoder_grads},
+          "peak_mem_gb": peak_gb})
+    return launches
+
+
+def check_wav(wav, cfg, what):
+    import numpy as np
+
+    from multimodal_diffusion_torch.utils.io import latent_shapes_from_config
+
+    L = latent_shapes_from_config(cfg, V2A_CLIPS)["audio"][-1]
+    if wav.shape != (V2A_CLIPS, L) or not np.all(np.isfinite(wav)) or np.abs(wav).max() > 1:
+        raise AssertionError(f"bad {what} output: shape {wav.shape}, finite "
+                             f"{np.all(np.isfinite(wav))}, max |x| {np.abs(wav).max()}")
+
+
+def spec8_v2a_phases(fa):
+    """Flagship sampling through build_components + sample_one_direction,
+    unguided (phase spec8_v2a) and sync-guided (phase spec8_v2a_guided) on
+    the same model, frames and initial noise."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.tools.profile_v2a import v2a_workload
+
+    t0 = time.perf_counter()
+    cfg, model, run = v2a_workload(V2A_CLIPS, V2A_STEPS, config="specificity8")
+    setup_s = time.perf_counter() - t0
+    n_layers = cfg["model"]["core"]["n_layers"]
+    expected = V2A_STEPS * n_layers
+
+    reset_launch_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wav = run()["audio"]
+    first_s = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    if launches != {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
+        raise AssertionError(f"kernel launches on the flagship v2a path {launches}, expected "
+                             f"{expected} forward and no backward")
+    check_wav(wav, cfg, "flagship v2a")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    batch_s = statistics.median(times)
+
+    # one full-width denoiser forward with mouth tokens, kernel vs dense (bf16)
+    rng = np.random.default_rng(0)
+    B2 = 2 * V2A_CLIPS
+    mc = model.cfg
+    mgrid = model.mouth_grid(48)
+    n_mouth = mgrid[0] * mgrid[1] * mgrid[2]
+    tok_v = torch.from_numpy(rng.normal(size=(B2, 96, 256)).astype(np.float32)).cuda()
+    tok_a = torch.from_numpy(rng.normal(size=(B2, 37, 32)).astype(np.float32)).cuda()
+    tok_m = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(B2, n_mouth, mc.token_dim_mouth))
+                             .astype(np.float32)).cuda()
+    t_v = torch.zeros(B2, dtype=torch.long, device="cuda")
+    t_a = torch.from_numpy(rng.integers(0, 1000, B2)).cuda()
+    keep = torch.cat([torch.ones(V2A_CLIPS), torch.zeros(V2A_CLIPS)]).cuda()
+    with torch.inference_mode():
+        a, b = (model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None,
+                                     use_kernel=use_kernel, tok_m=tok_m, keep_m=keep,
+                                     mouth_grid=mgrid) for use_kernel in (True, False))
+    if a["h_m"].shape != (B2, 288, 1024):
+        raise AssertionError(f"h_m has shape {tuple(a['h_m'].shape)}")
+    rel = {key: float((a[key].float() - b[key].float()).abs().max()
+                      / b[key].float().abs().max()) for key in SPEC8_DENOISE_REL_TOL}
+    if any(rel[key] > tol for key, tol in SPEC8_DENOISE_REL_TOL.items()):
+        raise AssertionError(f"flagship denoise_tokens kernel vs dense: {rel} > "
+                             f"{SPEC8_DENOISE_REL_TOL}")
+    emit({"phase": "spec8_v2a", "config": "mvp+specificity8", "clips": V2A_CLIPS,
+          "steps": V2A_STEPS, "tokens": 421, "sampler": "ddim", "compute_dtype": "bfloat16",
+          "setup_s": setup_s, "first_batch_s": first_s, "batch_s": times,
+          "median_batch_s": batch_s, "clips_per_s": V2A_CLIPS / batch_s,
+          "launches": launches, "wav_shape": list(wav.shape),
+          "wav_max_abs": float(np.abs(wav).max()),
+          "denoise_kernel_vs_dense_rel_err": rel, "rel_tol": SPEC8_DENOISE_REL_TOL,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # sync-guided: a third, B-sized forward a step and its backward w.r.t. the
+    # audio latent, through the three kernels
+    guided_launches = {name: 0 for name in launches}
+    want = {"flash_fwd": 2 * expected, "flash_bwd_dkdv": expected, "flash_bwd_dq": expected}
+    batches = {}
+    torch.cuda.reset_peak_memory_stats()
+    for sampler in ("ddim", "dpmpp_2m"):
+        unguided = wav if sampler == "ddim" else run({"sampler": sampler})["audio"]
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        guided = run({"sampler": sampler, **SYNC_GUIDANCE})["audio"]
+        seconds = time.perf_counter() - t0
+        got = launch_counts(fa)
+        if got != want:
+            raise AssertionError(f"kernel launches in a guided {sampler} batch {got}, "
+                                 f"expected {want}")
+        check_wav(guided, cfg, f"guided {sampler}")
+        diff = float(np.abs(guided - unguided).max())
+        n_differ = int((guided != unguided).sum())
+        if not diff > 0.0:
+            raise AssertionError(f"the guided {sampler} batch equals the unguided one")
+        if any(p.grad is not None for p in model.parameters()):
+            raise AssertionError("sync guidance left a .grad on a parameter")
+        for name in guided_launches:
+            guided_launches[name] += got[name]
+        batches[sampler] = {"batch_s": seconds, "clips_per_s": V2A_CLIPS / seconds,
+                            "launches": got, "max_abs_diff_from_unguided": diff,
+                            "samples_differing_from_unguided": n_differ,
+                            "unguided_max_abs": float(np.abs(unguided).max()),
+                            "vs_unguided_median_batch": seconds / batch_s}
+    emit({"phase": "spec8_v2a_guided", "config": "mvp+specificity8", "clips": V2A_CLIPS,
+          "steps": V2A_STEPS, "sampling": SYNC_GUIDANCE, "compute_dtype": "bfloat16",
+          "batches": batches, "launches_expected_per_batch": want,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, guided_launches
 
 
 def main(argv=None) -> int:
@@ -566,21 +823,38 @@ def main(argv=None) -> int:
           "backward_bf16_occupancy": fa.backward_occupancy()})
 
     cases = kernel_phase(fa)
-    v2a_launches = v2a_phase(fa)
-    train_launches = train_phase(fa)
+    by_path = {"v2a": {"flash_fwd": v2a_phase(fa)}}
+    torch.cuda.empty_cache()
+    by_path["train"] = train_phase(fa)
+    torch.cuda.empty_cache()
+    by_path["spec8_train"] = spec8_train_phase(fa)
+    torch.cuda.empty_cache()
+    by_path["spec8_v2a"], by_path["spec8_v2a_guided"] = spec8_v2a_phases(fa)
 
-    mvp = cases[("mvp", "bfloat16")]
+    def launches_of(name):
+        paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
+
+    # ms, plain_ms, bound_ms and library_ms are the mvp shapes'; the flagship
+    # shapes' stand beside them (the forward at the sampler's [16, 8, 421,
+    # 128], the backward pair at the train step's and guided sampler's
+    # [8, 8, 421, 128])
+    mvp, flag = cases[("mvp", "bfloat16")], cases[("flagship_sample", "bfloat16")]
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "multimodal_diffusion_torch/csrc/flash_fwd.cu",
         "replaces": "multimodal_diffusion_tpu/ops/flash_attention.py:49",
-        "launches": v2a_launches + train_launches["flash_fwd"],
-        "launches_by_path": {"v2a": v2a_launches, "train": train_launches["flash_fwd"]},
+        **launches_of("flash_fwd"),
         "max_abs_err": mvp["max_abs_err_out"], "ms": mvp["ms"], "plain_ms": mvp["plain_ms"],
         "bound_ms": mvp["bound_ms"], "bound_by": mvp["bound_by"],
-        "library_ms": mvp["library_ms"]}]
+        "library_ms": mvp["library_ms"],
+        "flagship": {"shape": flag["shape"], "max_abs_err": flag["max_abs_err_out"],
+                     "ms": flag["ms"], "plain_ms": flag["plain_ms"],
+                     "bound_ms": flag["bound_ms"], "bound_by": flag["bound_by"],
+                     "library_ms": flag["library_ms"]}}]
     for kernel, line in (("dkdv", 205), ("dq", 276)):
         rec = cases[("mvp_train", "bfloat16", kernel)]
+        flag = cases[("flagship", "bfloat16", kernel)]
         name = f"flash_bwd_{kernel}"
         # plain_ms and library_ms time the pair (the plain version and SDPA's
         # backward compute dq, dk and dv together)
@@ -588,10 +862,14 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "multimodal_diffusion_torch/csrc/flash_bwd.cu",
             "replaces": f"multimodal_diffusion_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name], "launches_by_path": {"train": train_launches[name]},
+            **launches_of(name),
             "max_abs_err": max(rec["max_abs_err"].values()), "ms": rec["ms"],
             "plain_ms": rec["plain_pair_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_pair_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_pair_ms"],
+            "flagship": {"shape": flag["shape"],
+                         "max_abs_err": max(flag["max_abs_err"].values()), "ms": flag["ms"],
+                         "plain_ms": flag["plain_pair_ms"], "bound_ms": flag["bound_ms"],
+                         "bound_by": flag["bound_by"], "library_ms": flag["library_pair_ms"]}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

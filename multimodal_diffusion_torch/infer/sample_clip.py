@@ -15,6 +15,7 @@ orbax checkpoint of the JAX package is not ported yet.
 from __future__ import annotations
 
 import argparse
+import math
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple, Union
 
@@ -109,7 +110,9 @@ def sample_one_direction(
     Returns {"audio": wav float32 [L] or [B,L], "sr": int} or
     {"video": frames uint8 [T,H,W,3] or [B,T,H,W,3], "fps": int}; a leading
     batch axis on the prompt generates B clips in one batched call.
-    `generator` (a CPU generator) draws the initial noise."""
+    `generator` (a CPU generator) draws the initial noise. With the
+    mouth-crop stream enabled, v2a conditions on mouth tokens cut from the
+    prompt frames; a2v runs with the stream zeroed."""
     if prompt_modality not in {"video", "audio"}:
         raise ValueError("prompt_modality must be 'video' or 'audio'")
     dev = _model_device(model)
@@ -136,17 +139,25 @@ def sample_one_direction(
                 frames = frames[None]
             B = frames.shape[0]
             frames = frames.permute(0, 4, 1, 2, 3)  # [B,3,T,H,W]
+            # Center-crop T here, not only inside encode_video: the mouth
+            # tokens are then cut from exactly the frames the VAE encodes
+            # (the sampler derives the mouth grid from the cropped latent).
+            t_div = t_down
+            if model.cfg.mouth_enabled:
+                t_div = math.lcm(t_down, model.cfg.mouth_tube[0])
             T_in = frames.shape[2]
-            T_crop = (T_in // t_down) * t_down
+            T_crop = (T_in // t_div) * t_div
             if T_crop == 0:
-                raise ValueError(f"prompt has {T_in} frames; need at least {t_down}")
+                raise ValueError(f"prompt has {T_in} frames; need at least {t_div} "
+                                 f"(vae.t_down x mouth tube t)")
             if T_crop != T_in:
                 s0 = (T_in - T_crop) // 2
                 frames = frames[:, :, s0:s0 + T_crop]
             z_v0 = model.encode_video(frames)
             z_init = torch.randn((B, Ca, Fa), generator=generator).to(dev)
             sample, _ = sampler_from_config(cfg, target="audio")
-            z_a = sample(model, z_v0, z_init)
+            tok_m = model.mouth_tokens(frames) if model.cfg.mouth_enabled else None
+            z_a = sample(model, z_v0, z_init, tok_mouth=tok_m)
             wav = model.decode_audio(z_a)[:, 0].float().cpu().numpy()  # [B, L]
             return {"audio": wav if batched else wav[0], "sr": sr}
 

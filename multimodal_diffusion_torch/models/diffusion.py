@@ -6,12 +6,17 @@
       --[cfg keep-mask]--> MMDiT core --> per-modality noise heads --> eps
 
 ``denoise_tokens``/``denoise_latents`` serve sampling; ``forward`` is the
-training pass (encode -> q_sample -> denoise, plus the token-space targets).
-Dropout follows ``train()``/``eval()``.
+training pass (encode -> q_sample -> denoise, plus the token-space targets
+and, on request, the reconstructions). Dropout follows ``train()``/``eval()``.
+
+With ``conditioning.mouth_crop.enabled`` a second, VAE-free conditioning
+stream joins the sequence after audio: raw pixels of a fixed mouth box,
+tube-patched into tokens, embedded at t = 0. It conditions only (the heads
+never see it) and is zeroed whenever video is the target or is CFG-dropped.
 
 Submodule names follow the JAX parameter tree {vid_vae, aud_codec, adapt_v,
-adapt_a, embed, t_embed, core, head}, so ``utils/convert.py`` maps a JAX
-checkpoint onto this module's state_dict.
+adapt_a, adapt_m, embed, t_embed, core, head}, so ``utils/convert.py`` maps a
+JAX checkpoint onto this module's state_dict.
 """
 
 from __future__ import annotations
@@ -63,18 +68,21 @@ class AVDiffusionConfig:
     # (config keys diffusion.{video,audio}.param)
     param_v: str = "eps"
     param_a: str = "eps"
+    # conditioning.mouth_crop.*: the mouth-crop conditioning stream
+    mouth_enabled: bool = False
+    mouth_box: Tuple[int, int, int, int] = (64, 112, 32, 96)  # h0, h1, w0, w1
+    mouth_tube: Tuple[int, int, int] = (2, 8, 8)  # (t, h, w) on PIXELS
     latent_rmsnorm: bool = False
     # model.encoder_stopgrad: stop the diffusion loss's gradient at the
-    # encoder outputs (the encoders then train on reconstruction only)
+    # encoder outputs (the encoders then train on reconstruction only, so it
+    # needs training.recon_loss_weight > 0)
     encoder_stopgrad: bool = False
     dtype: Any = torch.float32
 
     @classmethod
     def from_config(cls, cfg: Dict, dtype: Any = torch.float32) -> "AVDiffusionConfig":
         mouth = (cfg.get("conditioning", {}) or {}).get("mouth_crop", {}) or {}
-        if mouth.get("enabled", False):
-            raise NotImplementedError(
-                "conditioning.mouth_crop is not ported yet (the specificity8 slice)")
+        mtube = mouth.get("tube", {}) or {}
         par = cfg.get("parallel", {}) or {}
         for key in ("context", "pipe"):
             if int(par.get(key, 1) or 1) > 1:
@@ -105,6 +113,10 @@ class AVDiffusionConfig:
             posenc_audio=str(posenc.get("audio", "learned_1d")),
             param_v=str(cfg["diffusion"]["video"].get("param", "eps")),
             param_a=str(cfg["diffusion"]["audio"].get("param", "eps")),
+            mouth_enabled=bool(mouth.get("enabled", False)),
+            mouth_box=tuple(int(x) for x in mouth.get("box", (64, 112, 32, 96))),
+            mouth_tube=(int(mtube.get("t", 2)), int(mtube.get("h", 8)),
+                        int(mtube.get("w", 8))),
             latent_rmsnorm=bool(cfg["model"].get("latent_rmsnorm", False)),
             encoder_stopgrad=bool(cfg["model"].get("encoder_stopgrad", False)),
             dtype=dtype,
@@ -119,6 +131,16 @@ class AVDiffusionConfig:
     def token_dim_audio(self) -> int:
         return self.codec.lat_ch * self.chunk[0]
 
+    @property
+    def token_dim_mouth(self) -> int:
+        t, h, w = self.mouth_tube
+        return 3 * t * h * w
+
+    @property
+    def mouth_crop_hw(self) -> Tuple[int, int]:
+        h0, h1, w0, w1 = self.mouth_box
+        return (h1 - h0, w1 - w0)
+
 
 class Embeddings(nn.Module):
     """Modality + positional embeddings, grouped under one parameter key."""
@@ -127,7 +149,8 @@ class Embeddings(nn.Module):
         super().__init__()
         self.cfg = c
         if c.use_modality_embed:
-            self.modality = ModalityEmbedding(c.width, ("video", "audio"), c.dtype)
+            mods = ("video", "audio", "mouth") if c.mouth_enabled else ("video", "audio")
+            self.modality = ModalityEmbedding(c.width, mods, c.dtype)
         if c.posenc_video != "none":
             self.pos_v = PositionalEmbedding3D(
                 c.width, mode="learned" if c.posenc_video.startswith("learned") else "sin",
@@ -136,6 +159,15 @@ class Embeddings(nn.Module):
             self.pos_a = PositionalEmbedding1D(
                 c.width, mode="learned" if c.posenc_audio.startswith("learned") else "sin",
                 dtype=c.dtype)
+        if c.mouth_enabled:
+            self.pos_m = PositionalEmbedding3D(
+                c.width, mode="learned" if c.posenc_video.startswith("learned") else "sin",
+                dtype=c.dtype)
+
+    def mouth(self, Xm: torch.Tensor, grid_m: Tuple[int, int, int]) -> torch.Tensor:
+        if self.cfg.use_modality_embed:
+            Xm = self.modality(Xm, "mouth")
+        return Xm + self.pos_m(*grid_m, device=Xm.device)
 
     def forward(self, Xv: torch.Tensor, Xa: torch.Tensor,
                 video_grid: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,6 +193,8 @@ class AVDiffusionModel(nn.Module):
         self.aud_codec = AudioCodec(c.codec)
         self.adapt_v = LinearAdapter(c.token_dim_video, c.width, c.dtype)
         self.adapt_a = LinearAdapter(c.token_dim_audio, c.width, c.dtype)
+        if c.mouth_enabled:
+            self.adapt_m = LinearAdapter(c.token_dim_mouth, c.width, c.dtype)
         self.embed = Embeddings(c)
         self.t_embed = TimestepEmbedder(
             dim=c.width, mode="mlp" if c.timestep_mode == "mlp" else "sin", dtype=c.dtype)
@@ -186,8 +220,8 @@ class AVDiffusionModel(nn.Module):
     def encode_video(self, x: torch.Tensor) -> torch.Tensor:
         return self._latent_norm(self.vid_vae.encode(x))
 
-    def decode_video(self, z: torch.Tensor) -> torch.Tensor:
-        return self.vid_vae.decode(z)
+    def decode_video(self, z: torch.Tensor, out_size=None) -> torch.Tensor:
+        return self.vid_vae.decode(z, out_size)
 
     def encode_audio(self, wav: torch.Tensor) -> torch.Tensor:
         return self._latent_norm(self.aud_codec.encode(wav))
@@ -219,15 +253,36 @@ class AVDiffusionModel(nn.Module):
         t, h, w = self.cfg.tube
         return (z_v_shape[2] // t, z_v_shape[3] // h, z_v_shape[4] // w)
 
+    def mouth_tokens(self, video: torch.Tensor) -> torch.Tensor:
+        """Raw pixels [B, 3, T, H, W] -> mouth-crop tokens [B, Nm, Dm]: crop
+        cfg.mouth_box from each frame (clipped to the frame), shift the
+        pixels to [-0.5, 0.5] so that zero means CFG-dropped, and tube-patch
+        them. No VAE in this path."""
+        h0, h1, w0, w1 = self.cfg.mouth_box
+        t, h, w = self.cfg.mouth_tube
+        return tk.tube_patch_video(video[:, :, :, h0:h1, w0:w1] - 0.5, t, h, w)
+
+    def mouth_grid(self, T: int) -> Tuple[int, int, int]:
+        """The mouth tokens' (time, height, width) grid for T frames."""
+        t, h, w = self.cfg.mouth_tube
+        ch, cw = self.cfg.mouth_crop_hw
+        return (T // t, ch // h, cw // w)
+
     # ------------------ denoiser ------------------
 
     def embed_tokens(self, tok_v: torch.Tensor, tok_a: torch.Tensor,
                      t_v: torch.Tensor, t_a: torch.Tensor,
                      video_grid: Tuple[int, int, int],
                      keep_v: Optional[torch.Tensor] = None,
-                     keep_a: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
+                     keep_a: Optional[torch.Tensor] = None,
+                     tok_m: Optional[torch.Tensor] = None,
+                     keep_m: Optional[torch.Tensor] = None,
+                     mouth_grid: Optional[Tuple[int, int, int]] = None
+                     ) -> Tuple[torch.Tensor, int]:
         """Project + embed + timestep-ADD + CFG keep-mask; returns (X, Nv).
-        The keep multiplier applies AFTER all embeddings."""
+        The keep multiplier applies AFTER all embeddings. Mouth tokens (when
+        the stream is enabled and they are given) are embedded at t = 0 and
+        appended after audio."""
         Xv = self.adapt_v(tok_v)
         Xa = self.adapt_a(tok_a)
         Xv, Xa = self.embed(Xv, Xa, video_grid)
@@ -237,22 +292,43 @@ class AVDiffusionModel(nn.Module):
             Xv = Xv * keep_v.to(Xv.dtype)[:, None, None]
         if keep_a is not None:
             Xa = Xa * keep_a.to(Xa.dtype)[:, None, None]
-        return torch.cat([Xv, Xa], dim=1), Xv.shape[1]
+        parts = [Xv, Xa]
+        if tok_m is not None:
+            if not self.cfg.mouth_enabled:
+                raise ValueError("mouth tokens passed but conditioning.mouth_crop.enabled "
+                                 "is false")
+            Xm = self.embed.mouth(self.adapt_m(tok_m), mouth_grid)
+            # clean conditioning: embedded at t = 0 like the frozen prompt
+            Xm = Xm + self.t_embed(torch.zeros_like(t_v)).to(Xm.dtype)[:, None, :]
+            if keep_m is not None:
+                Xm = Xm * keep_m.to(Xm.dtype)[:, None, None]
+            parts.append(Xm)
+        return torch.cat(parts, dim=1), Xv.shape[1]
 
     def denoise_tokens(self, tok_v: torch.Tensor, tok_a: torch.Tensor,
                        t_v: torch.Tensor, t_a: torch.Tensor,
                        video_grid: Tuple[int, int, int],
                        keep_v: Optional[torch.Tensor] = None,
                        keep_a: Optional[torch.Tensor] = None,
-                       use_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
-        """Full denoiser pass: {'eps_v', 'eps_a', 'h_v', 'h_a'}.
+                       use_kernel: Optional[bool] = None,
+                       tok_m: Optional[torch.Tensor] = None,
+                       keep_m: Optional[torch.Tensor] = None,
+                       mouth_grid: Optional[Tuple[int, int, int]] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """Full denoiser pass: {'eps_v', 'eps_a', 'h_v', 'h_a'} and, with
+        mouth tokens, 'h_m' (their contextualized features, for the sync
+        loss; they attend in the core but have no head output).
         ``use_kernel`` picks the attention backend (None: by device)."""
-        X, Nv = self.embed_tokens(tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a)
+        X, Nv = self.embed_tokens(tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a,
+                                  tok_m, keep_m, mouth_grid)
         Na = tok_a.shape[1]
         H = self.core(X, use_kernel=use_kernel)
         Hv, Ha = H[:, :Nv], H[:, Nv:Nv + Na]
         eps = self.head({"video": Hv, "audio": Ha})
-        return {"eps_v": eps["video"], "eps_a": eps["audio"], "h_v": Hv, "h_a": Ha}
+        out = {"eps_v": eps["video"], "eps_a": eps["audio"], "h_v": Hv, "h_a": Ha}
+        if tok_m is not None:
+            out["h_m"] = H[:, Nv + Na:Nv + Na + tok_m.shape[1]]
+        return out
 
     def denoise_latents(self, z_v: torch.Tensor, z_a: torch.Tensor,
                         t_v: torch.Tensor, t_a: torch.Tensor,
@@ -276,50 +352,82 @@ class AVDiffusionModel(nn.Module):
                 alpha_bar_v: torch.Tensor, alpha_bar_a: torch.Tensor,
                 keep_v: Optional[torch.Tensor] = None,
                 keep_a: Optional[torch.Tensor] = None,
+                keep_m: Optional[torch.Tensor] = None,
                 with_recon: bool = False,
                 use_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """End-to-end training forward: encode -> q_sample (with the pre-drawn
         latent noise) -> denoise. Returns the token-space predictions
         {'eps_v', 'eps_a'}, the contextualized features {'h_v', 'h_a'} and the
         token-space targets {'eps_true_v', 'eps_true_a'} under
-        cfg.param_{v,a}. Dropout is active under ``train()``."""
-        if with_recon:
-            raise NotImplementedError(
-                "with_recon (the reconstruction decode) is not ported yet "
-                "(the specificity8 slice)")
-        z_v0 = self.encode_video(video)
-        z_a0 = self.encode_audio(audio)
+        cfg.param_{v,a}. Dropout is active under ``train()``.
+
+        With the mouth-crop stream enabled, its tokens are cut from the clean
+        input pixels ('h_m' is returned too); ``keep_m`` (normally
+        (1 - target_is_video) * keep) zeroes the stream whenever video is the
+        target or its conditioning is CFG-dropped, and defaults to zeros.
+
+        ``with_recon`` also decodes the clean latents back to pixels and
+        waveform ('recon_v' at the input's size, 'recon_a'): the only
+        gradient path into the decoders and, under cfg.encoder_stopgrad, into
+        the encoders (the denoising path then sees detached latents, the
+        decoders the live ones)."""
+        # under encoder_stopgrad without the decode nothing differentiates
+        # the encoders: they then run without a graph
+        live = torch.is_grad_enabled() and (with_recon or not self.cfg.encoder_stopgrad)
+        with torch.set_grad_enabled(live):
+            z_v0 = self.encode_video(video)
+            z_a0 = self.encode_audio(audio)
+        z_v0_d, z_a0_d = z_v0, z_a0
         if self.cfg.encoder_stopgrad:
-            z_v0, z_a0 = z_v0.detach(), z_a0.detach()
-        z_vt, eps_v = q_sample(z_v0, t_v, alpha_bar_v, noise_v)
-        z_at, eps_a = q_sample(z_a0, t_a, alpha_bar_a, noise_a)
+            z_v0_d, z_a0_d = z_v0.detach(), z_a0.detach()
+        z_vt, eps_v = q_sample(z_v0_d, t_v, alpha_bar_v, noise_v)
+        z_at, eps_a = q_sample(z_a0_d, t_a, alpha_bar_a, noise_a)
+        tok_m = mgrid = None
+        if self.cfg.mouth_enabled:
+            tok_m = self.mouth_tokens(video)
+            # the grid of the ACTUAL crop extent (the box clips to the frame)
+            h0, h1, w0, w1 = self.cfg.mouth_box
+            mt, mh, mw = self.cfg.mouth_tube
+            ch = min(h1, video.shape[3]) - min(h0, video.shape[3])
+            cw = min(w1, video.shape[4]) - min(w0, video.shape[4])
+            mgrid = (video.shape[2] // mt, ch // mh, cw // mw)
+            if keep_m is None:
+                keep_m = torch.zeros(video.shape[0], device=video.device)
         out = self.denoise_tokens(self.tokenize_video(z_vt), self.tokenize_audio(z_at),
                                   t_v, t_a, self.video_grid(z_vt.shape), keep_v, keep_a,
-                                  use_kernel)
+                                  use_kernel, tok_m, keep_m, mgrid)
         out["eps_true_v"] = self.tokenize_video(
-            prediction_target(z_v0, eps_v, t_v, alpha_bar_v, self.cfg.param_v))
+            prediction_target(z_v0_d, eps_v, t_v, alpha_bar_v, self.cfg.param_v))
         out["eps_true_a"] = self.tokenize_audio(
-            prediction_target(z_a0, eps_a, t_a, alpha_bar_a, self.cfg.param_a))
+            prediction_target(z_a0_d, eps_a, t_a, alpha_bar_a, self.cfg.param_a))
+        if with_recon:
+            out["recon_v"] = self.decode_video(z_v0, out_size=tuple(video.shape[2:]))
+            out["recon_a"] = self.decode_audio(z_a0)
         return out
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init with the JAX package's initializer families:
-    xavier-uniform Dense kernels, lecun-normal 3-D convs, the codec's
-    kaiming-uniform (a=0.2) 1-D convs, N(0, 0.02) embedding tables, zero
-    biases, unit norm scales. Draws come from ``generator``, so a seed fixes
+    xavier-uniform Dense kernels (lecun-normal for the VideoVAE's patch
+    projections), lecun-normal 3-D convs, the codec's kaiming-uniform
+    (a=0.2) 1-D convs, N(0, 0.02) embedding tables, zero biases, unit norm
+    scales. Draws come from ``generator``, so a seed fixes
     the weights (they are not the JAX package's draws)."""
-    for mod in model.modules():
+    def lecun_normal_(w: torch.Tensor) -> None:
+        # flax lecun_normal: truncated at 2 std, std corrected for the cut
+        std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+    for name, mod in model.named_modules():
         if isinstance(mod, Dense):
-            nn.init.xavier_uniform_(mod.weight, generator=generator)
+            if name.startswith("vid_vae."):
+                lecun_normal_(mod.weight)
+            else:
+                nn.init.xavier_uniform_(mod.weight, generator=generator)
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, Conv3d):
-            fan_in = mod.weight[0].numel()
-            # flax lecun_normal: truncated at 2 std, std corrected for the cut
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            lecun_normal_(mod.weight)
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, Conv1d):
             fan_in = mod.weight[0].numel()

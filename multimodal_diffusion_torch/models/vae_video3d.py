@@ -1,25 +1,38 @@
-"""VideoVAE, conv arch (counterpart of the JAX ``models/vae_video3d.py``).
+"""VideoVAE (counterpart of the JAX ``models/vae_video3d.py``), two archs.
 
+``arch: conv`` (mvp):
   encode: conv blocks (Conv3d k=3 -> GELU -> GroupNorm) -> AvgPool3d
           (t_down, s_down, s_down) -> 1x1 conv to lat_ch
           [B,3,T,H,W] -> [B,Cv,T/t_down,H/s_down,W/s_down]
   decode: 1x1 -> trilinear upsample (half-pixel centres) -> conv blocks ->
           1x1 -> sigmoid/tanh
 
-Channels-first [B, C, T, H, W] throughout. ``arch: patch`` comes with the
-flagship config later; the variational VAE, which no config uses, is not
-ported.
+``arch: patch`` (the flagship): the downsampling is one Dense over
+non-overlapping (t_down, s_down, s_down) tubelets, and every conv block runs
+at latent resolution:
+  encode: patchify -> Dense (patch_dim -> hidden) -> LayerNorm (eps 1e-6) ->
+          GELU -> conv blocks -> 1x1 conv to lat_ch
+  decode: 1x1 -> conv blocks -> Dense (hidden -> patch_dim) -> unpatchify ->
+          sigmoid/tanh
+
+Channels-first [B, C, T, H, W] at the boundary and in the convs; a tubelet's
+vector is ordered (t, h, w, C) with C last, as the JAX package builds it from
+its channels-last layout, so ``patch_embed``/``unpatch_proj`` weights carry
+across. The variational VAE, which no config uses, is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .adapters import Dense
+from .mmdit import LayerNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +47,8 @@ class VideoVAEConfig:
     dec_blocks: int = 2
     variational: bool = False
     out_activation: str = "sigmoid"  # "sigmoid" | "tanh"
-    arch: str = "conv"
+    arch: str = "conv"  # "conv" | "patch"
+    hidden: int = 0  # patch-arch channel width (0 -> 2 * enc_base)
     dtype: Any = torch.float32
 
     @classmethod
@@ -55,9 +69,18 @@ class VideoVAEConfig:
             variational=bool(d.get("variational", False)),
             out_activation=str(d.get("out_activation", "sigmoid")),
             arch=str(d.get("arch", enc.get("arch", "conv"))),
+            hidden=int(enc.get("hidden", 0)),
         )
         kw.update(overrides)
         return cls(**kw)
+
+    @property
+    def patch_hidden(self) -> int:
+        return self.hidden if self.hidden > 0 else 2 * self.enc_base
+
+    @property
+    def patch_dim(self) -> int:
+        return self.t_down * self.s_down * self.s_down * self.in_ch
 
 
 class Conv3d(nn.Conv3d):
@@ -92,22 +115,47 @@ class ConvBlock3D(nn.Module):
 class VideoVAE(nn.Module):
     def __init__(self, cfg: VideoVAEConfig):
         super().__init__()
-        if cfg.arch != "conv":
-            raise NotImplementedError(
-                f"VideoVAE arch {cfg.arch!r} is not ported yet (only 'conv')")
+        if cfg.arch not in ("conv", "patch"):
+            raise ValueError(f"VideoVAE arch must be 'conv'|'patch', got {cfg.arch!r}")
         if cfg.variational:
             raise NotImplementedError("the variational VideoVAE is not ported")
         self.cfg = cfg
         c, dt = cfg, cfg.dtype
+        patch = c.arch == "patch"
+        if patch:
+            enc_width = dec_width = c.patch_hidden
+            self.patch_embed = Dense(c.patch_dim, enc_width, dt)
+            self.patch_norm = LayerNorm(enc_width, eps=1e-6, dtype=dt)  # flax's default eps
+            enc_in = enc_width
+        else:
+            enc_width, dec_width, enc_in = c.enc_base, c.dec_base, c.in_ch
         self.enc = nn.ModuleList(
-            ConvBlock3D(c.in_ch if i == 0 else c.enc_base, c.enc_base, dt)
+            ConvBlock3D(enc_in if i == 0 else enc_width, enc_width, dt)
             for i in range(c.enc_blocks))
-        enc_out = c.enc_base if c.enc_blocks else c.in_ch
-        self.to_lat = Conv3d(enc_out, c.lat_ch, 1, dt)
-        self.from_lat = Conv3d(c.lat_ch, c.dec_base, 1, dt)
+        self.to_lat = Conv3d(enc_width if c.enc_blocks else enc_in, c.lat_ch, 1, dt)
+        self.from_lat = Conv3d(c.lat_ch, dec_width, 1, dt)
         self.dec = nn.ModuleList(
-            ConvBlock3D(c.dec_base, c.dec_base, dt) for _ in range(c.dec_blocks))
-        self.to_img = Conv3d(c.dec_base, c.in_ch, 1, dt)
+            ConvBlock3D(dec_width, dec_width, dt) for _ in range(c.dec_blocks))
+        if patch:
+            self.unpatch_proj = Dense(dec_width, c.patch_dim, dt)
+        else:
+            self.to_img = Conv3d(dec_width, c.in_ch, 1, dt)
+
+    def _patchify(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, C, T, H, W] -> [B, T', H', W', t_down*s_down*s_down*C]:
+        non-overlapping tubelets, each vector ordered (t, h, w, C)."""
+        td, sd = self.cfg.t_down, self.cfg.s_down
+        B, C, T, H, W = x.shape
+        x = x.reshape(B, C, T // td, td, H // sd, sd, W // sd, sd)
+        return x.permute(0, 2, 4, 6, 3, 5, 7, 1).reshape(
+            B, T // td, H // sd, W // sd, td * sd * sd * C)
+
+    def _unpatchify(self, h: torch.Tensor) -> torch.Tensor:
+        """[B, T', H', W', t_down*s_down*s_down*C] -> [B, C, T, H, W]."""
+        td, sd, C = self.cfg.t_down, self.cfg.s_down, self.cfg.in_ch
+        B, Tp, Hp, Wp, _ = h.shape
+        h = h.reshape(B, Tp, Hp, Wp, td, sd, sd, C)
+        return h.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(B, C, Tp * td, Hp * sd, Wp * sd)
 
     def _center_crop(self, x: torch.Tensor) -> torch.Tensor:
         """Center-crop [B,C,T,H,W] so dims divide the downsample factors."""
@@ -129,20 +177,44 @@ class VideoVAE(nn.Module):
         """x: [B, 3, T, H, W] -> z: [B, Cv, T', H', W']."""
         c = self.cfg
         h = self._center_crop(x).to(c.dtype)
-        for blk in self.enc:
-            h = blk(h)
-        h = F.avg_pool3d(h, kernel_size=(c.t_down, c.s_down, c.s_down))
+        if c.arch == "patch":
+            h = F.gelu(self.patch_norm(self.patch_embed(self._patchify(h))),
+                       approximate="none")
+            h = h.permute(0, 4, 1, 2, 3)  # [B, hidden, T', H', W']
+            for blk in self.enc:
+                h = blk(h)
+        else:
+            for blk in self.enc:
+                h = blk(h)
+            h = F.avg_pool3d(h, kernel_size=(c.t_down, c.s_down, c.s_down))
         return self.to_lat(h)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor,
+               out_size: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
         """z: [B, Cv, T', H', W'] -> x_hat: [B, 3, T, H, W] in [0,1] (sigmoid)
-        or [-1,1] (tanh)."""
+        or [-1,1] (tanh). (T, H, W) is the latent grid times the downsample
+        factors, or ``out_size``: then the result is enlarged trilinearly
+        (half-pixel centres) to it, as the reconstruction of a clip that
+        ``encode`` center-cropped. An ``out_size`` smaller than the natural
+        size along any axis raises ValueError: shrinking is not ported (the
+        JAX package's resize antialiases there, ``F.interpolate`` does not)."""
         c = self.cfg
         _, _, Tp, Hp, Wp = z.shape
+        natural = (Tp * c.t_down, Hp * c.s_down, Wp * c.s_down)
+        size = natural if out_size is None else tuple(int(n) for n in out_size)
+        if any(n < m for n, m in zip(size, natural)):
+            raise ValueError(f"VideoVAE.decode: out_size {size} is smaller than the "
+                             f"decoded size {natural}; only enlarging is supported")
         h = self.from_lat(z.to(c.dtype))
-        size = (Tp * c.t_down, Hp * c.s_down, Wp * c.s_down)
-        h = F.interpolate(h, size=size, mode="trilinear", align_corners=False)
-        for blk in self.dec:
-            h = blk(h)
-        x = self.to_img(h)
+        if c.arch == "patch":
+            for blk in self.dec:
+                h = blk(h)
+            x = self._unpatchify(self.unpatch_proj(h.permute(0, 2, 3, 4, 1)))
+            if size != natural:
+                x = F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+        else:
+            h = F.interpolate(h, size=size, mode="trilinear", align_corners=False)
+            for blk in self.dec:
+                h = blk(h)
+            x = self.to_img(h)
         return torch.sigmoid(x) if c.out_activation == "sigmoid" else torch.tanh(x)

@@ -181,3 +181,63 @@ def ddim_step(
 
     x_prev = sqrt_a_prev * x0_pred + coeff_eps * eps_hat + stoch
     return x_prev.to(xdtype)
+
+
+def dpmpp_2m_step(
+    x_t: torch.Tensor,
+    t_now: torch.Tensor,
+    t_prev: torch.Tensor,
+    pred: torch.Tensor,
+    alpha_bar: torch.Tensor,
+    x0_prev: torch.Tensor,
+    h_prev: torch.Tensor,
+    *,
+    param: str = "eps",
+    clip_x0: Optional[Tuple[float, float]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One DPM-Solver++(2M) update (Lu et al. 2022: data prediction,
+    multistep, the deterministic ODE form).
+
+    With alpha_t = sqrt(a_bar), sigma_t = sqrt(1 - a_bar),
+    lambda_t = log(alpha_t / sigma_t), h = lambda_prev - lambda_now:
+
+        D = (1 + 1/(2 r)) x0_now - 1/(2 r) x0_last,  r = h_prev / h
+        x_prev = (sigma_prev / sigma_now) x_t - alpha_prev (e^{-h} - 1) D
+
+    The first step (h_prev <= 0) and the final step (t_prev == -1,
+    a_bar(-1) := 1 as in ddim_step) use D = x0_now; the final step returns D
+    itself (the sigma_prev -> 0 limit). `pred` is the model output under
+    `param` ('eps'|'x0'|'v'). Returns (x_prev, x0_now, h): the caller carries
+    x0_now and h [B, 1, ...] into the next step as x0_prev and h_prev. fp32
+    math; x_prev is cast back to x_t.dtype."""
+    xdtype = x_t.dtype
+    x_t = x_t.to(torch.float32)
+    pred = pred.to(torch.float32)
+    nd = x_t.ndim
+
+    a_t = _bcast_gather(alpha_bar, torch.clamp(t_now, min=0), nd)
+    a_prev_raw = _bcast_gather(alpha_bar, torch.clamp(t_prev, min=0), nd)
+    is_final = (t_prev < 0).reshape((-1,) + (1,) * (nd - 1))
+    # a_bar(-1) := 1; the stand-in keeps lambda finite, the where() below
+    # makes the final step exact
+    a_prev = torch.where(is_final, torch.full_like(a_prev_raw, 1.0 - 1e-10), a_prev_raw)
+
+    x0_now = to_x0_pred(x_t, pred, a_t, param=param)
+    if clip_x0 is not None:
+        x0_now = torch.clamp(x0_now, clip_x0[0], clip_x0[1])
+
+    def lam(a: torch.Tensor) -> torch.Tensor:
+        return 0.5 * (torch.log(torch.clamp(a, min=1e-20))
+                      - torch.log(torch.clamp(1.0 - a, min=1e-20)))
+
+    h = lam(a_prev) - lam(a_t)  # > 0 in the denoising direction
+    r = h_prev / torch.clamp(h, min=1e-20)
+    coef = torch.where((h_prev <= 0.0) | is_final, torch.zeros_like(r),
+                       1.0 / (2.0 * torch.clamp(r, min=1e-20)))
+    D = (1.0 + coef) * x0_now - coef * x0_prev.to(torch.float32)
+
+    sigma_now = torch.sqrt(torch.clamp(1.0 - a_t, min=1e-20))
+    sigma_prev = torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0))
+    x_prev = (sigma_prev / sigma_now) * x_t - torch.sqrt(a_prev) * (torch.exp(-h) - 1.0) * D
+    x_prev = torch.where(is_final, D, x_prev)
+    return x_prev.to(xdtype), x0_now, h

@@ -1,19 +1,24 @@
-"""Where the device time of one mvp train step goes, on one CUDA card.
+"""Where the device time of one train step goes, on one CUDA card.
 
     python -m multimodal_diffusion_torch.tools.profile_train [--clips 8]
+        [--config mvp|specificity8]
 
 Builds the `bench.py --task train` workload (mvp at full width: d=512,
-8 layers, 8 heads; B clips of 48x128x128 video and 48000 audio samples,
+8 layers, 8 heads; or with `--config specificity8` the flagship: d=1024, 16
+layers, the patch VideoVAE, 288 mouth-crop tokens, reconstruction every 8th
+step, bf16 moments; B clips of 48x128x128 video and 48000 audio samples,
 uniform from np.random.default_rng(0), placed on the card once as bench.py
 does; seeded random weights, bf16 compute with fp32 parameters, AdamW + EMA)
-through create_trainer + run_training, runs two steps to warm up, then one
-step under torch.profiler, and prints one JSON line: that step's wall time,
-the device's busy time in it (sum of the CUDA kernels' self time), the idle
+through create_trainer + run_training, warms up, then runs one step under
+torch.profiler, and prints one JSON line: that step's wall time, the
+device's busy time in it (sum of the CUDA kernels' self time), the idle
 share 1 - busy / wall of that same step, its kernel launches, the flash
 kernels' device time, the kernels with the most device time, and each layer
 run alone (VAE and codec encode, denoiser, optimizer and EMA; `layer_ms`).
-The profiler slows the host, so the profiled step is slower than an
-unprofiled one; `chip_smoke.py` times those.
+Where the config decodes on every K-th step only, a step without the decode
+and a step with it are profiled apart (the latter under `recon_step`). The
+profiler slows the host, so a profiled step is slower than an unprofiled
+one; `chip_smoke.py` times those.
 """
 
 from __future__ import annotations
@@ -28,18 +33,18 @@ import numpy as np
 import torch
 
 from ..train.trainer import create_trainer, run_training
-from ..utils.io import mvp_v2a_config
+from ..utils.io import builtin_config
 
 
-def train_workload(clips: int = 8, seed: int = 0):
-    """The mvp trainer on the card and the bench.py synthetic batch (uniform
-    video [clips, 3, T, H, W] and audio [clips, 1, L] from
-    np.random.default_rng(0), has_* all true) on the card, and
-    `run(n_steps, log_fn=None)` that takes n steps through run_training and
-    waits for the card. The config is the built-in mvp+v2a tree: v2a.yaml
+def train_workload(clips: int = 8, seed: int = 0, config: str = "mvp"):
+    """The trainer of the built-in config `config` on the card and the
+    bench.py synthetic batch (uniform video [clips, 3, T, H, W] and audio
+    [clips, 1, L] from np.random.default_rng(0), has_* all true) on the card,
+    and `run(n_steps, log_fn=None)` that takes n steps through run_training
+    and waits for the card. "mvp" is the built-in mvp+v2a tree (v2a.yaml
     overlays only sampling, paths and io keys, so every key the trainer
-    reads is mvp.yaml's."""
-    cfg = mvp_v2a_config()
+    reads is mvp.yaml's); "specificity8" the flagship."""
+    cfg = builtin_config(config)
     cfg["data"]["batch_size"] = clips
     cfg["training"]["log_every"] = 1
     bundle = create_trainer(cfg, device="cuda", seed=seed)
@@ -92,14 +97,26 @@ def layer_ms(bundle, batch) -> dict:
         torch.autograd.grad(z, [p for p in params if p.requires_grad], allow_unused=True)
 
     with torch.no_grad():
-        tok_v = model.tokenize_video(model.encode_video(video))
-        tok_a = model.tokenize_audio(model.encode_audio(audio))
+        z_v, z_a = model.encode_video(video), model.encode_audio(audio)
+        tok_v, tok_a = model.tokenize_video(z_v), model.tokenize_audio(z_a)
     grid = model.video_grid((0, 0) + tuple(sc.z_video_shape[2:]))
+    mouth_kw = {}
+    if model.cfg.mouth_enabled:
+        mouth_kw = {"tok_m": model.mouth_tokens(video), "mouth_grid": model.mouth_grid(
+            video.shape[2]), "keep_m": torch.ones(video.shape[0], device=video.device)}
 
     def denoise():
-        out = model.denoise_tokens(tok_v, tok_a, draws["t_v"], draws["t_a"], grid)
+        out = model.denoise_tokens(tok_v, tok_a, draws["t_v"], draws["t_a"], grid, **mouth_kw)
         loss = out["eps_v"].float().square().mean() + out["eps_a"].float().square().mean()
         loss.backward()
+
+    def decode():
+        loss = TT.reconstruction_loss(
+            model.decode_video(z_v, out_size=tuple(video.shape[2:])), video,
+            model.decode_audio(z_a), audio, weight=1.0)
+        torch.autograd.grad(loss, [p for n, p in model.named_parameters()
+                                   if n.startswith(("vid_vae.", "aud_codec."))],
+                            allow_unused=True)
 
     def optimizer():
         bundle.state.optimizer.step([p.grad for p in params])
@@ -112,6 +129,8 @@ def layer_ms(bundle, batch) -> dict:
     out = {"VAE/codec encode fwd+bwd": _median_device_ms(encode),
            "denoiser fwd+bwd (flash kernels inside)": _median_device_ms(denoise),
            "optimizer + EMA": _median_device_ms(optimizer)}
+    if sc.recon_weight > 0.0:
+        out["VAE/codec decode + reconstruction loss fwd+bwd"] = _median_device_ms(decode)
     for p in params:
         p.grad = None
     return out
@@ -139,17 +158,25 @@ def profile_step(run, top: int = 20) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--clips", type=int, default=8)
+    ap.add_argument("--config", choices=("mvp", "specificity8"), default="mvp")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this tool profiles the card")
-    _, bundle, batch, run = train_workload(args.clips)
-    run(2)  # warm-up: kernel builds, cuDNN plans, allocator
+    _, bundle, batch, run = train_workload(args.clips, config=args.config)
+    sc = bundle.step_config
+    decode_apart = sc.recon_weight > 0.0 and sc.recon_every > 1
+    # warm-up: kernel builds, cuDNN plans, allocator; through one decode step
+    run(sc.recon_every if decode_apart else 2)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    prof = profile_step(run)
-    print(json.dumps({"phase": "profile_train", "clips": args.clips, "nvidia_smi": smi,
-                      **prof, "layers_alone_ms": layer_ms(bundle, batch)}), flush=True)
+    prof = profile_step(run)  # a step without the decode, where they differ
+    if decode_apart:
+        run(sc.recon_every - 1 - bundle.state.step % sc.recon_every)
+        prof["recon_step"] = profile_step(run)
+    print(json.dumps({"phase": "profile_train", "config": args.config, "clips": args.clips,
+                      "nvidia_smi": smi, **prof,
+                      "layers_alone_ms": layer_ms(bundle, batch)}), flush=True)
     return 0
 
 

@@ -1,14 +1,18 @@
 """Where the device time of one v2a batch goes, on one CUDA card.
 
     python -m multimodal_diffusion_torch.tools.profile_v2a [--clips 8] [--steps 50]
+        [--config mvp|specificity8] [--sync-guidance 0.5] [--sampler ddim|dpmpp_2m]
 
-Builds the `bench.py` workload (mvp+v2a at full width, seeded N(0, 0.02)
-weights, bf16 compute, seeded uniform prompt frames), runs one batch to warm
-up, then one batch under torch.profiler, and prints one JSON line: that
-batch's wall time, the device's busy time in it (sum of the CUDA kernels'
-self time), the idle share 1 - busy / wall of that same batch, and the
-kernels with the most device time. The profiler slows the host, so the
-profiled batch is slower than an unprofiled one; `chip_smoke.py` times those.
+Builds the `bench.py` workload (mvp+v2a at full width, or with `--config
+specificity8` the flagship: d=1024, 16 layers, mouth-crop tokens from the
+frames; seeded N(0, 0.02) weights, bf16 compute, seeded uniform prompt
+frames), runs one batch to warm up, then one batch under torch.profiler, and
+prints one JSON line: that batch's wall time, the device's busy time in it
+(sum of the CUDA kernels' self time), the idle share 1 - busy / wall of that
+same batch, the flash kernels' device time, and the kernels with the most
+device time. `--sync-guidance` (flagship: source mouth) profiles the
+sync-guided batch. The profiler slows the host, so the profiled batch is
+slower than an unprofiled one; `chip_smoke.py` times those.
 """
 
 from __future__ import annotations
@@ -21,14 +25,17 @@ import time
 import torch
 
 from ..infer.sample_clip import build_components, sample_one_direction
-from ..utils.io import latent_shapes_from_config, mvp_v2a_config
+from ..utils.io import builtin_config, latent_shapes_from_config
 
 
-def v2a_workload(clips: int = 8, steps: int = 50, seed: int = 0):
-    """The mvp+v2a model on the card with every parameter N(0, 0.02) (as
-    `bench.py`), uniform uint8 prompt frames [clips, T, H, W, 3], and a
-    `run()` that samples audio for them and waits for the card."""
-    cfg = mvp_v2a_config()
+def v2a_workload(clips: int = 8, steps: int = 50, seed: int = 0, config: str = "mvp"):
+    """The model of the built-in config `config` ("mvp": mvp+v2a;
+    "specificity8": the flagship) on the card with every parameter
+    N(0, 0.02) (as `bench.py`), uniform uint8 prompt frames [clips, T, H, W,
+    3], and a `run(sampling=None)` that samples audio for them and waits for
+    the card; `sampling` overlays the config's `sampling` keys for that call
+    (sampler, sync_guidance_scale, ...)."""
+    cfg = builtin_config(config)
     for mod in ("audio", "video"):
         cfg["diffusion"][mod]["sampler_steps"] = steps
     model = build_components(cfg, device="cuda")
@@ -40,8 +47,9 @@ def v2a_workload(clips: int = 8, steps: int = 50, seed: int = 0):
     frames = torch.randint(0, 256, (clips, T, H, W, 3), device="cuda", dtype=torch.uint8,
                            generator=torch.Generator(device="cuda").manual_seed(seed))
 
-    def run():
-        out = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
+    def run(sampling=None):
+        c = cfg if not sampling else {**cfg, "sampling": {**cfg["sampling"], **sampling}}
+        out = sample_one_direction(cfg=c, model=model, prompt_modality="video",
                                    prompt_video=frames, device="cuda",
                                    generator=torch.Generator().manual_seed(seed + 1))
         torch.cuda.synchronize()
@@ -60,8 +68,10 @@ def profile_batch(run, top: int = 15) -> dict:
         wall_s = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    flash_ms = sum(e.self_device_time_total for e in events if "flash_" in e.key) / 1e3
     ranked = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]
     return {"wall_s": wall_s, "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s,
+            "kernel_launches": sum(e.count for e in events), "flash_kernels_device_ms": flash_ms,
             "top": [{"name": e.key[:200], "count": e.count,
                      "device_ms": e.self_device_time_total / 1e3} for e in ranked]}
 
@@ -70,16 +80,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--clips", type=int, default=8)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--config", choices=("mvp", "specificity8"), default="mvp")
+    ap.add_argument("--sync-guidance", type=float, default=0.0,
+                    help="sampling.sync_guidance_scale (0: unguided)")
+    ap.add_argument("--sampler", choices=("ddim", "dpmpp_2m"), default="ddim")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this tool profiles the card")
-    _, _, run = v2a_workload(args.clips, args.steps)
+    _, _, sample = v2a_workload(args.clips, args.steps, config=args.config)
+    sampling = {"sampler": args.sampler, "sync_guidance_scale": args.sync_guidance}
+
+    def run():
+        return sample(sampling)
+
     run()  # warm-up: kernel build, cuDNN plans, allocator
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"phase": "profile", "clips": args.clips, "steps": args.steps,
-                      "nvidia_smi": smi, **profile_batch(run)}), flush=True)
+    print(json.dumps({"phase": "profile", "config": args.config, "clips": args.clips,
+                      "steps": args.steps, "sampling": sampling, "nvidia_smi": smi,
+                      **profile_batch(run)}), flush=True)
     return 0
 
 

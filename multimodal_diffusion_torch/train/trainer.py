@@ -2,10 +2,12 @@
 ``train/trainer.py``).
 
 One step: normalise the uint8 video on the device -> encode -> q_sample ->
-denoise -> target-only MSE (+ alignment and sync losses) -> backward ->
-global-norm clip -> AdamW (warmup-cosine LR, decoupled weight decay on every
-parameter) -> EMA of the core. The attention of the core runs through the
-flash-attention kernels, forward and backward.
+denoise -> target-only MSE (+ alignment, sync and reconstruction losses) ->
+backward -> global-norm clip -> AdamW (warmup-cosine LR, decoupled weight
+decay on every parameter) -> EMA of the core. The attention of the core runs
+through the flash-attention kernels, forward and backward. The
+reconstruction decode runs on every ``training.recon_every``-th step only;
+one step function serves both kinds of step.
 
 Randomness is split from the body: ``draw_step_randomness`` draws a step's
 timesteps, latent noise and CFG/clean-conditioning uniforms from the
@@ -13,10 +15,8 @@ trainer's ``torch.Generator``; the step body takes them as arguments, so a
 test hands both frameworks the same numpy draws. Dropout draws from the same
 generator. Nothing uses torch's global RNG.
 
-Options that need modules of a later slice raise ``NotImplementedError``:
-``training.recon_loss_weight > 0`` (the reconstruction decode) and
-``training.sync_loss_source: mouth`` (the mouth-crop stream). The JAX loop's
-MFU logging waits for a profiling module calibrated on the H100.
+``parallel.model > 1`` raises ``NotImplementedError`` until its slice. The
+JAX loop's MFU logging waits for a profiling module calibrated on the H100.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
 from ..models.mmdit import set_dropout_generator
 from ..ops import schedule as S
 from ..utils.io import compute_dtype_from_config, latent_shapes_from_config, resolve_device
-from .losses import alignment_loss, mse_targets_only, sync_contrastive_loss
+from .losses import (alignment_loss, mse_targets_only, reconstruction_loss,
+                     sync_contrastive_loss)
 from .mask_schedule import Any2AnySchedule
 
 
@@ -131,17 +132,20 @@ class AdamW:
                              self.clip_norm / norm)
         g = torch._foreach_mul(grads, factor)
         b1, b2 = self.b1, self.b2
-        m = [x.float() for x in self.mu]  # the stored tensors when fp32
-        v = [x.float() for x in self.nu]
+        stored = self.mu + self.nu
+        if self.mv_dtype == torch.float32:
+            mv = stored  # updated in place
+        else:
+            mv = [torch.empty_like(x, dtype=torch.float32) for x in stored]
+            torch._foreach_copy_(mv, stored)
+        m, v = mv[:len(self.mu)], mv[len(self.mu):]
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, g, alpha=1.0 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
         if self.mv_dtype != torch.float32:
-            for stored, new in zip(self.mu + self.nu, m + v):
-                stored.copy_(new)  # one rounding per step
-            m = [x.float() for x in self.mu]
-            v = [x.float() for x in self.nu]
+            torch._foreach_copy_(stored, mv)  # one rounding per step
+            torch._foreach_copy_(mv, stored)  # the update reads the rounded moments
         lr = self.lr_schedule(self.count)
         self.count += 1
         denom = torch._foreach_div(v, 1.0 - b2 ** self.count)
@@ -222,7 +226,11 @@ class StepConfig:
     align_weight: float = 0.0
     sync_weight: float = 0.0
     sync_tau: float = 0.1
+    sync_source: str = "video"  # "video" | "mouth": the stream the sync loss reads
     video_time_chunks: int = 1
+    mouth_time_chunks: int = 1
+    recon_weight: float = 0.0
+    recon_every: int = 1  # the reconstruction decode runs on every recon_every-th step
     ema_decay: float = 0.999
     use_ema: bool = True
     use_kernel: Optional[bool] = None
@@ -257,9 +265,14 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, to
 
 def train_loss(model: AVDiffusionModel, sc: StepConfig, abar_v: torch.Tensor,
                abar_a: torch.Tensor, batch: Dict[str, torch.Tensor], target_is_video: float,
-               draws: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               draws: Dict[str, torch.Tensor], with_recon: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The train loss of one batch (on the device, video already [B, 3, T, H,
-    W] float) under the given draws; returns (loss, its parts)."""
+    W] float) under the given draws; returns (loss, its parts).
+    ``with_recon`` says whether this step decodes and takes the
+    reconstruction loss (None: whenever sc.recon_weight > 0)."""
+    if with_recon is None:
+        with_recon = sc.recon_weight > 0.0
     t_v, t_a = draws["t_v"], draws["t_a"]
     if sc.clean_cond_prob > 0.0:
         # force the CONDITIONING modality's t to 0 (video conditions when
@@ -275,15 +288,31 @@ def train_loss(model: AVDiffusionModel, sc: StepConfig, abar_v: torch.Tensor,
     w_v = float(target_is_video)
     keep_v = w_v + (1.0 - w_v) * keep_nontarget
     keep_a = w_v * keep_nontarget + (1.0 - w_v)
+    # the mouth-crop stream conditions only: on when video conditions, dropped
+    # with it under CFG (the model ignores keep_m when the stream is off)
+    keep_m = (1.0 - w_v) * keep_nontarget
     out = model(batch["video"], batch["audio"], t_v, t_a, draws["noise_v"], draws["noise_a"],
-                abar_v, abar_a, keep_v, keep_a, use_kernel=sc.use_kernel)
+                abar_v, abar_a, keep_v, keep_a, keep_m=keep_m, with_recon=with_recon,
+                use_kernel=sc.use_kernel)
     loss_main = mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
                                  out["eps_true_a"], target_is_video,
                                  batch.get("has_video"), batch.get("has_audio"))
     loss_align = alignment_loss(out["h_v"], out["h_a"], weight=sc.align_weight)
-    loss_sync = sync_contrastive_loss(out["h_v"], out["h_a"], sc.video_time_chunks,
-                                      weight=sc.sync_weight, tau=sc.sync_tau)
-    loss_recon = torch.zeros((), device=loss_main.device)
+    if sc.sync_source == "mouth":
+        # the mouth tokens' rate; a dropped or target-side stream carries no timing
+        loss_sync = sync_contrastive_loss(out["h_m"], out["h_a"], sc.mouth_time_chunks,
+                                          weight=sc.sync_weight, tau=sc.sync_tau,
+                                          sample_weight=keep_m)
+    else:
+        loss_sync = sync_contrastive_loss(out["h_v"], out["h_a"], sc.video_time_chunks,
+                                          weight=sc.sync_weight, tau=sc.sync_tau)
+    if with_recon:
+        loss_recon = reconstruction_loss(out["recon_v"], batch["video"], out["recon_a"],
+                                         batch["audio"], weight=sc.recon_weight,
+                                         has_video=batch.get("has_video"),
+                                         has_audio=batch.get("has_audio"))
+    else:
+        loss_recon = torch.zeros((), device=loss_main.device)
     loss = loss_main + loss_align + loss_recon + loss_sync
     return loss, {"loss": loss, "loss_main": loss_main, "loss_align": loss_align,
                   "loss_recon": loss_recon, "loss_sync": loss_sync}
@@ -293,7 +322,11 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor)
     """Returns train_step(state, batch, target_is_video, draws=None) ->
     metrics (0-d tensors on the device: loss, loss_main, loss_align,
     loss_recon, loss_sync, grad_norm before the clip). `draws` default to a
-    fresh draw from state.generator."""
+    fresh draw from state.generator. With sc.recon_weight > 0 the step that
+    brings state.step to a multiple of sc.recon_every decodes and takes the
+    reconstruction loss; the others skip the decode (loss_recon 0), and a
+    parameter that such a step gives no gradient still takes the optimizer's
+    zero-gradient update (moment decay and weight decay)."""
 
     def train_step(state: TrainState, batch: Dict[str, Any], target_is_video: float,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -304,8 +337,9 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor)
         params = state.optimizer.params
         for p in params:
             p.grad = None
+        with_recon = sc.recon_weight > 0.0 and (state.step + 1) % sc.recon_every == 0
         loss, metrics = train_loss(model, sc, abar_v, abar_a, batch_to_device(batch, device),
-                                   target_is_video, draws)
+                                   target_is_video, draws, with_recon)
         loss.backward()
         grads = [p.grad for p in params]
         with torch.no_grad():
@@ -328,7 +362,10 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor)
 def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor):
     """Returns eval_step(model, batch, generator) -> {val_loss_video,
     val_loss_audio, val_loss}: per-modality target MSE with no CFG drop, no
-    dropout, timesteps and noise from `generator`."""
+    dropout, timesteps and noise from `generator`. With the mouth-crop stream
+    enabled the audio loss comes from a second forward with the stream on
+    (the v2a sampling configuration); the first keeps it zeroed, so the video
+    loss never sees clean target pixels."""
 
     @torch.no_grad()
     def eval_step(model: AVDiffusionModel, batch: Dict[str, Any],
@@ -338,11 +375,20 @@ def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor):
         try:
             b = batch_to_device(batch, abar_v.device)
             d = draw_step_randomness(generator, sc)
-            out = model(b["video"], b["audio"], d["t_v"], d["t_a"], d["noise_v"], d["noise_a"],
-                        abar_v, abar_a, use_kernel=sc.use_kernel)
-            args = (out["eps_v"], out["eps_a"], out["eps_true_v"], out["eps_true_a"])
-            loss_v = mse_targets_only(*args, 1.0, b.get("has_video"), b.get("has_audio"))
-            loss_a = mse_targets_only(*args, 0.0, b.get("has_video"), b.get("has_audio"))
+            def losses_of(keep_m, target_is_video):
+                out = model(b["video"], b["audio"], d["t_v"], d["t_a"], d["noise_v"],
+                            d["noise_a"], abar_v, abar_a, keep_m=keep_m,
+                            use_kernel=sc.use_kernel)
+                return [mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
+                                         out["eps_true_a"], w, b.get("has_video"),
+                                         b.get("has_audio")) for w in target_is_video]
+
+            if model.cfg.mouth_enabled:
+                (loss_v,) = losses_of(None, (1.0,))
+                (loss_a,) = losses_of(torch.ones(b["video"].shape[0], device=abar_v.device),
+                                      (0.0,))
+            else:
+                loss_v, loss_a = losses_of(None, (1.0, 0.0))
         finally:
             model.train(was_training)
         return {"val_loss_video": loss_v, "val_loss_audio": loss_a,
@@ -402,16 +448,13 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_cfg = cfg["training"]
-    if float(t_cfg.get("recon_loss_weight", 0.0)) > 0.0:
-        raise NotImplementedError(
-            "training.recon_loss_weight > 0 (the reconstruction decode) is not "
-            "ported yet (the specificity8 slice)")
     sync_source = str(t_cfg.get("sync_loss_source", "video"))
     if sync_source not in ("video", "mouth"):
         raise ValueError(f"training.sync_loss_source must be video|mouth, got {sync_source!r}")
-    if sync_source == "mouth":
-        raise NotImplementedError(
-            "training.sync_loss_source: mouth (the mouth-crop stream) is not ported yet")
+    recon_every = t_cfg.get("recon_every", 1)
+    recon_every = 1 if recon_every is None else int(recon_every)
+    if recon_every < 1:
+        raise ValueError(f"training.recon_every must be >= 1, got {recon_every}")
     if int((cfg.get("parallel", {}) or {}).get("model", 1) or 1) > 1:
         raise NotImplementedError("parallel.model > 1 (tensor parallelism) is not ported yet")
     ema_cfg = t_cfg.get("ema", {"use_ema": True, "decay": 0.999}) or {}
@@ -421,6 +464,10 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
 
     model = AVDiffusionModel(AVDiffusionConfig.from_config(
         cfg, dtype=compute_dtype_from_config(cfg)))
+    if (sync_source == "mouth" and float(t_cfg.get("sync_loss_weight", 0.0)) > 0.0
+            and not model.cfg.mouth_enabled):
+        raise ValueError("training.sync_loss_source: mouth requires "
+                         "conditioning.mouth_crop.enabled: true")
     cc = model.cfg.codec
     if cc.frames_per_clip:
         dur_est = cc.frames_per_clip * cc.hop_samples / float(cc.sr)
@@ -450,8 +497,10 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
         clean_cond_prob=float(t_cfg.get("clean_cond_prob", 0.0)),
         align_weight=float(t_cfg.get("align_loss_weight", 0.0)),
         sync_weight=float(t_cfg.get("sync_loss_weight", 0.0)),
-        sync_tau=float(t_cfg.get("sync_tau", 0.1)),
+        sync_tau=float(t_cfg.get("sync_tau", 0.1)), sync_source=sync_source,
         video_time_chunks=shapes["z_video"][2] // model.cfg.tube[0],
+        mouth_time_chunks=shapes["video"][2] // model.cfg.mouth_tube[0],
+        recon_weight=float(t_cfg.get("recon_loss_weight", 0.0)), recon_every=recon_every,
         ema_decay=float(ema_cfg.get("decay", 0.999)), use_ema=use_ema, use_kernel=use_kernel)
     state = TrainState(step=0, model=model, optimizer=optimizer, ema=ema, generator=generator)
     return TrainerBundle(model=model, state=state, train_step=build_train_step(sc, abar_v, abar_a),
@@ -474,7 +523,9 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     modality missing from a batch is zero-filled (its has_* mask keeps it
     out of the loss). log_fn(step, metrics) every `log_every` steps with the
     interval's mean metrics, steps_per_sec and clips_per_sec (one host sync
-    per interval); checkpoint_fn(step, state) every `ckpt_every`;
+    per interval; with training.recon_every = K > 1 the steps without the
+    decode count as loss_recon 0, so the logged loss_recon, and its share of
+    the logged loss, is 1/K of a reconstruction step's); checkpoint_fn(step, state) every `ckpt_every`;
     val_fn(step, state) every `val_every`; `should_stop()` is polled after
     every step."""
     t_cfg = cfg["training"]

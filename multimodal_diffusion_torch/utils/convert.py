@@ -12,7 +12,11 @@ Module paths follow the JAX tree, except flax's automatic names
 (``RMSNorm_0`` ... inside an MMDiT block become ``norm1``/``norm2``, other
 norms ``norm``, ``Conv_0`` -> ``conv``, ``Dense_i`` -> ``fc{i+1}``) and
 numbered siblings, which become list entries (``block_3`` -> ``blocks.3``,
-``enc_0`` -> ``enc.0``, ``shared_1`` -> ``shared.1``).
+``enc_0`` -> ``enc.0``, ``shared_1`` -> ``shared.1``). The flagship's leaves
+need no rule of their own: ``vid_vae/patch_embed`` and ``unpatch_proj`` are
+Dense kernels, ``patch_norm`` a norm, ``adapt_m/proj`` an adapter like its
+siblings, ``embed/pos_m`` three position tables, and the modality table
+simply has a third row.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""Config loading, the built-in mvp+v2a config, and device/dtype helpers.
+"""Config loading, the built-in mvp+v2a and specificity8 configs, and
+device/dtype helpers.
 
 ``load_config``/``deep_update``/``expand_env`` are copies of the JAX
 package's ``utils/io.py`` (the port imports nothing from that package).
 PyYAML is imported only inside ``load_yaml``: a machine without it can
-still run the port from ``MVP_V2A_CONFIG``.
+still run the port from ``MVP_V2A_CONFIG`` or ``SPECIFICITY8_CONFIG``.
 """
 
 from __future__ import annotations
@@ -78,10 +79,12 @@ def load_config(*paths: PathLike, expand: bool = True) -> Dict[str, Any]:
     return cfg
 
 
-# ``load_config("configs/mvp.yaml", "configs/v2a.yaml")`` with OUTPUT_DIR and
-# CHECKPOINT_DIR unset: the v2a sampling workload without PyYAML.
-MVP_V2A_CONFIG: Dict[str, Any] = {
-    "experiment": "av_infer_v2a",
+# ``configs/mvp.yaml`` and the overlays ``configs/v2a.yaml`` (with OUTPUT_DIR
+# and CHECKPOINT_DIR unset) and ``configs/specificity8.yaml``, kept here as
+# dicts: the workloads run without PyYAML. ``MVP_V2A_CONFIG`` and
+# ``SPECIFICITY8_CONFIG`` are the merged trees ``load_config`` gives.
+_MVP_CONFIG: Dict[str, Any] = {
+    "experiment": "av_mvp_tpu",
     "seed": 42,
     "device": "tpu",
     "mixed_precision": "bf16",
@@ -90,8 +93,7 @@ MVP_V2A_CONFIG: Dict[str, Any] = {
               "out_root": "runs/av_mvp",
               "ckpt_dir": "runs/av_mvp/checkpoints",
               "log_dir": "runs/av_mvp/logs",
-              "samples_dir": "runs/v2a/samples",
-              "ckpt_path": "runs/av_mvp/checkpoints/latest"},
+              "samples_dir": "runs/av_mvp/samples"},
     "data": {"train_split_glob": "data/GRID/clips.json",
              "val_split_glob": "data/GRID/clips.json",
              "clip_seconds": 3.0,
@@ -137,12 +139,12 @@ MVP_V2A_CONFIG: Dict[str, Any] = {
                                   "dropout": 0.1,
                                   "activation": "gelu"}}},
     "diffusion": {"video": {"steps": 1000,
-                            "sampler_steps": 50,
+                            "sampler_steps": 25,
                             "schedule": "cosine",
                             "min_beta": 0.0001,
                             "max_beta": 0.02},
                   "audio": {"steps": 1000,
-                            "sampler_steps": 60,
+                            "sampler_steps": 25,
                             "schedule": "cosine",
                             "min_beta": 0.0001,
                             "max_beta": 0.02}},
@@ -162,20 +164,91 @@ MVP_V2A_CONFIG: Dict[str, Any] = {
                  "grad_clip_norm": 1.0,
                  "ema": {"use_ema": True, "decay": 0.999}},
     "sampling": {"ddim_eta": 0.0,
-                 "guidance_scale": {"video": 0.0, "audio": 3.5},
+                 "guidance_scale": {"video": 3.0, "audio": 3.0},
                  "prompt_modality": "video"},
-    "streaming": {"enabled": False,
+    "streaming": {"enabled": True,
                   "window_seconds": 3.0,
                   "hop_seconds": 1.0,
-                  "crossfade_seconds": 0.0},
+                  "crossfade_seconds": 0.25},
     "parallel": {"data": -1, "model": 1, "remat_core": False},
+}
+
+_V2A_OVERLAY: Dict[str, Any] = {
+    "experiment": "av_infer_v2a",
+    "paths": {"samples_dir": "runs/v2a/samples",
+              "ckpt_path": "runs/av_mvp/checkpoints/latest"},
+    "sampling": {"prompt_modality": "video",
+                 "ddim_eta": 0.0,
+                 "guidance_scale": {"audio": 3.5, "video": 0.0}},
+    "diffusion": {"audio": {"sampler_steps": 60}, "video": {"sampler_steps": 50}},
+    "streaming": {"enabled": False, "crossfade_seconds": 0.0},
     "io": {"input_frames_dir": "", "output_audio_path": "", "sr": 16000},
 }
+
+# the flagship: d=1024, 16 layers, 8 heads of 128, the patch VideoVAE, x0
+# audio, 288 mouth-crop tokens (N = 96 + 37 + 288 = 421), reconstruction
+# every 8th step, bf16 Adam moments
+_SPECIFICITY8_OVERLAY: Dict[str, Any] = {
+    "experiment": "av_specificity8",
+    "paths": {"out_root": "runs/specificity8",
+              "ckpt_dir": "runs/specificity8/checkpoints",
+              "log_dir": "runs/specificity8/logs",
+              "samples_dir": "runs/specificity8/samples"},
+    "data": {"train_split_glob": "data/GRID/clips_4spk.json",
+             "val_split_glob": "data/GRID/clips_4spk_val.json",
+             "records_dir": "data/records_4spk",
+             "device_resident": True,
+             "resident_max_clips": 3072,
+             "batch_size": 8},
+    "video": {"arch": "patch", "encoder": {"hidden": 128}},
+    "tokenizer": {"width": 1024},
+    "model": {"latent_rmsnorm": True,
+              "encoder_stopgrad": True,
+              "core": {"d_model": 1024, "n_layers": 16, "n_heads": 8},
+              "heads": {"video": {"hidden_dim": 1024}, "audio": {"hidden_dim": 1024}}},
+    "diffusion": {"audio": {"param": "x0"}},
+    "conditioning": {"mouth_crop": {"enabled": True,
+                                    "box": [72, 104, 36, 84],
+                                    "tube": {"t": 1, "h": 16, "w": 16}}},
+    "training": {"any2any_targets": {"video": 0.3, "audio": 0.7},
+                 "align_loss_weight": 0.1,
+                 "sync_loss_weight": 0.2,
+                 "sync_tau": 0.1,
+                 "clean_cond_prob": 0.5,
+                 "recon_loss_weight": 1.0,
+                 "recon_every": 8,
+                 "optimizer": {"mv_dtype": "bf16"},
+                 "max_steps": 100000,
+                 "log_every": 100,
+                 "ckpt_every": 5000,
+                 "ckpt_async": False,
+                 "val_every": 0,
+                 "scheduler": {"warmup_steps": 1000}},
+}
+
+MVP_V2A_CONFIG: Dict[str, Any] = deep_update(copy.deepcopy(_MVP_CONFIG), _V2A_OVERLAY)
+SPECIFICITY8_CONFIG: Dict[str, Any] = deep_update(copy.deepcopy(_MVP_CONFIG),
+                                                  _SPECIFICITY8_OVERLAY)
 
 
 def mvp_v2a_config() -> Dict[str, Any]:
     """A fresh deep copy of MVP_V2A_CONFIG (callers may mutate it)."""
     return copy.deepcopy(MVP_V2A_CONFIG)
+
+
+def specificity8_config() -> Dict[str, Any]:
+    """A fresh deep copy of SPECIFICITY8_CONFIG (callers may mutate it)."""
+    return copy.deepcopy(SPECIFICITY8_CONFIG)
+
+
+def builtin_config(name: str) -> Dict[str, Any]:
+    """A fresh copy of a built-in config by name: "mvp" (mvp + v2a) or
+    "specificity8" (mvp + specificity8)."""
+    if name == "mvp":
+        return mvp_v2a_config()
+    if name == "specificity8":
+        return specificity8_config()
+    raise ValueError(f"config must be mvp|specificity8, got {name!r}")
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:

@@ -63,3 +63,30 @@ def torch_model(cfg: dict, params) -> TorchModel:
 
 def t2n(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().cpu().numpy()
+
+
+def shrunk_flagship_cfg(sampler_steps: int = 4) -> dict:
+    """The shrunk config with the flagship's (specificity8) options on: the
+    patch VideoVAE, per-sample latent RMS norm, encoder stop-gradient, x0
+    audio, a mouth-crop stream (a 12x16 box in the 32x32 frame, 1x4x8 pixel
+    tubes: 6 tokens a frame, 48 a clip), video tubes of one latent frame (two
+    time chunks, so the video-source sync loss has negatives), alignment,
+    sync and reconstruction losses, clean conditioning, recon_every 2, bf16
+    Adam moments."""
+    from multimodal_diffusion_tpu.utils.io import deep_update
+
+    cfg = shrunk_cfg(sampler_steps)
+    deep_update(cfg, {
+        "video": {"arch": "patch", "encoder": {"hidden": 16}},
+        "tokenizer": {"video": {"tube": {"t": 1, "h": 1, "w": 1}}},
+        "model": {"latent_rmsnorm": True, "encoder_stopgrad": True,
+                  "heads": {"video": {"out_dim": 8}}},
+        "diffusion": {"audio": {"param": "x0"}},
+        "conditioning": {"mouth_crop": {"enabled": True, "box": [16, 28, 8, 24],
+                                        "tube": {"t": 1, "h": 4, "w": 8}}},
+        "training": {"any2any_targets": {"video": 0.3, "audio": 0.7},
+                     "align_loss_weight": 0.1, "sync_loss_weight": 0.2, "sync_tau": 0.1,
+                     "clean_cond_prob": 0.5, "recon_loss_weight": 1.0, "recon_every": 2,
+                     "optimizer": {"mv_dtype": "bf16"}},
+    })
+    return cfg

@@ -342,3 +342,75 @@ def test_flash_attention_autograd_launches_each_kernel_once(cuda):
     assert counts() == tuple(c + 1 for c in before)
     for g, r in zip(grads, refs):
         assert _rel_err(g, r) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_fwd_takes_the_flagship_sampler_strides(cuda):
+    """The flagship sampler's operands at full width: head views of the fused
+    qkv projection [16, 421, 3, 8, 128] (CFG-doubled batch; 96 video + 37
+    audio + 288 mouth tokens), 16-byte aligned although N is odd."""
+    B, N, H, Dh = 16, 421, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(15)
+    qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not t_fa.misaligned_operands(q=q, k=k, v=v)
+    out, lse = t_fa.flash_forward(q, k, v)
+    assert out.transpose(1, 2).is_contiguous()
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outer", [torch.no_grad, torch.inference_mode])
+def test_input_gradient_inside_a_gradless_sampler(cuda, outer):
+    """What the sync-guided sampler does at each step: under an outer
+    no_grad (or inference_mode), enable grad, send a fresh copy of the input
+    through a qkv projection and flash_attention, and take autograd.grad
+    w.r.t. that input only. Each kernel launches once, the gradient agrees
+    with the kernels' plain versions (bf16: 2e-2 of its largest magnitude),
+    and the weight gets no .grad."""
+    B, N, H, Dh = 8, 421, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(16)
+    w = (torch.randn((3 * H * Dh, 64), generator=g, device=cuda) * 0.2).requires_grad_()
+    counts = lambda: (t_fa.flash_forward.launches, t_fa.flash_backward.dkdv_launches,  # noqa: E731
+                      t_fa.flash_backward.dq_launches)
+
+    def input_grad(x, attention):
+        x = x.clone().requires_grad_(True)
+        qkv = torch.nn.functional.linear(x.to(torch.bfloat16), w.to(torch.bfloat16))
+        q, k, v = (t.transpose(1, 2) for t in qkv.reshape(B, N, 3, H, Dh).unbind(2))
+        loss = attention(q, k, v).float().square().mean()
+        (grad,) = torch.autograd.grad(loss, x)
+        return grad
+
+    def plain(q, k, v):
+        with torch.no_grad():
+            out, lse = t_fa.flash_forward_reference(q, k, v)
+        return _PlainAttention.apply(q, k, v, out, lse)
+
+    with outer():
+        x = torch.randn((B, N, 64), generator=g, device=cuda)
+        before = counts()
+        with torch.inference_mode(False), torch.enable_grad():
+            got = input_grad(x, t_fa.flash_attention)
+            assert counts() == tuple(c + 1 for c in before)
+            want = input_grad(x, plain)
+            assert counts() == tuple(c + 1 for c in before)
+    assert w.grad is None and bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 2e-2
+
+
+class _PlainAttention(torch.autograd.Function):
+    """The kernels' plain versions as one differentiable op."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, out, lse):
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out.clone()
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = t_fa.flash_backward_reference(q, k, v, out, lse, dout.contiguous())
+        return dq, dk, dv, None, None

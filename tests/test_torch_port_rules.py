@@ -1,7 +1,7 @@
 """Rules the port keeps: it imports nothing of JAX or the JAX package, the
-weight converter consumes every JAX leaf exactly once, its built-in config
-is the merged mvp+v2a YAML, its entry points refuse to run on the CPU
-unless asked to, and options of later slices raise."""
+weight converter consumes every JAX leaf exactly once, its built-in configs
+are the merged mvp+v2a and mvp+specificity8 YAMLs, its entry points refuse to
+run on the CPU unless asked to, and options of later slices raise."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_model_and_params, shrunk_cfg
+from _torch_parity import jax_model_and_params, shrunk_cfg, shrunk_flagship_cfg
 from multimodal_diffusion_torch.infer import sample_clip
 from multimodal_diffusion_torch.models.diffusion import AVDiffusionConfig, AVDiffusionModel
 from multimodal_diffusion_torch.train.trainer import create_trainer
@@ -38,10 +38,14 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
-def test_converter_consumes_every_leaf_once():
+@pytest.mark.parametrize("make_cfg", [shrunk_cfg, shrunk_flagship_cfg],
+                         ids=["mvp", "flagship"])
+def test_converter_consumes_every_leaf_once(make_cfg):
+    """Also the flagship's leaves: vid_vae.patch_embed / patch_norm /
+    unpatch_proj, adapt_m, embed.pos_m and the three-row modality table."""
     import jax
 
-    cfg = shrunk_cfg()
+    cfg = make_cfg()
     _, params = jax_model_and_params(cfg)
     leaves = jax.tree_util.tree_leaves(params)
     sd = jax_params_to_state_dict(params)
@@ -49,6 +53,12 @@ def test_converter_consumes_every_leaf_once():
     model = AVDiffusionModel(AVDiffusionConfig.from_config(cfg))
     model.load_state_dict(sd, strict=True)
     assert sum(p.numel() for p in model.parameters()) == sum(np.size(x) for x in leaves)
+    if make_cfg is shrunk_flagship_cfg:
+        assert {"vid_vae.patch_embed.weight", "vid_vae.patch_norm.weight",
+                "vid_vae.unpatch_proj.bias", "adapt_m.proj.weight",
+                "embed.pos_m.t_table"} <= set(sd)
+        assert sd["embed.modality.table"].shape[0] == 3
+        assert "vid_vae.to_img.weight" not in sd
 
 
 @pytest.mark.parametrize("path,key", [
@@ -58,6 +68,10 @@ def test_converter_consumes_every_leaf_once():
     (("head", "shared_1", "LayerNorm_0", "scale"), "head.shared.1.norm.weight"),
     (("vid_vae", "enc_0", "Conv_0", "kernel"), "vid_vae.enc.0.conv.weight"),
     (("t_embed", "Dense_1", "kernel"), "t_embed.fc2.weight"),
+    (("vid_vae", "patch_norm", "scale"), "vid_vae.patch_norm.weight"),
+    (("vid_vae", "unpatch_proj", "kernel"), "vid_vae.unpatch_proj.weight"),
+    (("adapt_m", "proj", "kernel"), "adapt_m.proj.weight"),
+    (("embed", "pos_m", "h_table"), "embed.pos_m.h_table"),
 ])
 def test_flax_auto_names(path, key):
     assert torch_key(path) == key
@@ -70,6 +84,20 @@ def test_builtin_config_is_mvp_plus_v2a(monkeypatch):
                                                REPO / "configs" / "v2a.yaml")
     assert tio.load_config(REPO / "configs" / "mvp.yaml",
                            REPO / "configs" / "v2a.yaml") == tio.MVP_V2A_CONFIG
+
+
+def test_builtin_config_is_mvp_plus_specificity8():
+    assert tio.specificity8_config() == load_config(REPO / "configs" / "mvp.yaml",
+                                                    REPO / "configs" / "specificity8.yaml")
+    assert tio.load_config(REPO / "configs" / "mvp.yaml",
+                           REPO / "configs" / "specificity8.yaml") == tio.SPECIFICITY8_CONFIG
+    assert tio.builtin_config("specificity8") == tio.SPECIFICITY8_CONFIG
+    assert tio.builtin_config("mvp") == tio.MVP_V2A_CONFIG
+    cfg = tio.specificity8_config()
+    cfg["seed"] = -1  # a copy: the built-in tree is untouched
+    assert tio.SPECIFICITY8_CONFIG["seed"] == 42
+    with pytest.raises(ValueError, match="mvp|specificity8"):
+        tio.builtin_config("t2i")
 
 
 @pytest.fixture
@@ -94,23 +122,52 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_unported_options_raise():
+    """Exactly these still raise NotImplementedError: parallel.context,
+    parallel.pipe, parallel.model > 1, quant: int8, the variational VAE and
+    restoring an orbax checkpoint."""
+    from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
+    from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
+
     cfg = shrunk_cfg()
-    for key, value in (("conditioning", {"mouth_crop": {"enabled": True}}),
-                       ("parallel", {"context": 2}),
-                       ("parallel", {"pipe": 2})):
+    for key in ("context", "pipe"):
         with pytest.raises(NotImplementedError):
-            AVDiffusionConfig.from_config({**cfg, key: value})
-    with pytest.raises(NotImplementedError):
-        AVDiffusionModel(AVDiffusionConfig.from_config(
-            {**cfg, "video": {**cfg["video"], "arch": "patch"}}))
-    model = AVDiffusionModel(AVDiffusionConfig.from_config(cfg))
-    with pytest.raises(NotImplementedError, match="with_recon"):
-        model(*(None,) * 8, with_recon=True)
-    for key, value in (("recon_loss_weight", 0.5), ("sync_loss_source", "mouth")):
-        with pytest.raises(NotImplementedError):
-            create_trainer({**cfg, "training": {**cfg["training"], key: value}}, device="cpu")
+            AVDiffusionConfig.from_config({**cfg, "parallel": {key: 2}})
     with pytest.raises(NotImplementedError):
         create_trainer({**cfg, "parallel": {"model": 2}}, device="cpu")
+    with pytest.raises(NotImplementedError):
+        MMDiT(MMDiTConfig(d_model=64, n_layers=1, n_heads=4, quant="int8"))
+    with pytest.raises(NotImplementedError):
+        VideoVAE(VideoVAEConfig(variational=True))
+
+
+def test_orbax_checkpoint_restore_raises(tmp_path):
+    (tmp_path / "7").mkdir()  # a step directory without the port's params.pt
+    cfg = {**shrunk_cfg(), "paths": {"ckpt_path": str(tmp_path / "latest")}}
+    with pytest.raises(NotImplementedError, match="orbax"):
+        sample_clip.build_components(cfg, device="cpu")
+
+
+def test_flagship_options_build():
+    """The specificity8 keys that used to raise: arch patch, mouth_crop,
+    with_recon, recon_loss_weight, recon_every, sync_loss_source mouth,
+    dpmpp_2m and sync guidance all build (the full-width config too, on the
+    meta device: no memory is taken)."""
+    from multimodal_diffusion_torch.infer.ddim import sampler_from_config
+
+    cfg = shrunk_flagship_cfg()
+    cfg["training"]["sync_loss_source"] = "mouth"
+    cfg["sampling"].update(sampler="dpmpp_2m", sync_guidance_scale=0.5)
+    bundle = create_trainer(cfg, device="cpu", batch_size=2)
+    sc = bundle.step_config
+    assert (sc.sync_source, sc.recon_every, sc.recon_weight) == ("mouth", 2, 1.0)
+    assert sc.mouth_time_chunks == 8 and bundle.model.cfg.mouth_enabled
+    sampler_from_config(cfg, "audio")
+    with torch.device("meta"):
+        full = AVDiffusionModel(AVDiffusionConfig.from_config(tio.specificity8_config()))
+    c = full.cfg
+    assert (c.width, c.core.n_layers, c.core.n_heads, c.vae.arch) == (1024, 16, 8, "patch")
+    assert c.vae.patch_dim == 768 and c.vae.patch_hidden == 128 and c.token_dim_mouth == 768
+    assert full.mouth_grid(48) == (48, 2, 3)  # 288 mouth tokens; N = 96 + 37 + 288 = 421
 
 
 def test_builtin_config_carries_the_mvp_training_keys(monkeypatch):
