@@ -55,7 +55,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                mouth), once under ddim and once under dpmpp_2m: per batch 1600
                forward launches and 800 of each backward kernel (the gradient
                w.r.t. the audio latent runs through them), an output that
-               differs from the unguided one, no parameter left with a .grad.
+               differs from the unguided one, no parameter left with a .grad;
+  9. spec8_cli_resident — the train_joint CLI (train/train_joint.py main, in
+               this process) with configs/mvp.yaml + configs/specificity8.yaml
+               and an overlay, on a corpus of 512 flagship-sized clips
+               (uint8 video [48, 128, 128, 3], float32 audio [48000], a few
+               without video or audio; 4 .avrec shards, ~1.3 GB) written here
+               with the port's write_record_shards; 384 of them, strided
+               across the shards, resident on the card: 8 steps, then
+               --resume to step 12. Exactly 16 launches of each kernel per
+               step, finite losses and grad norms, every batch a CUDA uint8
+               tensor with no host-to-device batch copy, the restored state
+               bit-equal to step 8's (params, moments, EMA, generator),
+               checkpoints at 8 and 12, an EMA that moves; upload, step,
+               save and restore times and peak memory;
+ 10. spec8_cli_streamed — the same shards streamed (device_resident false):
+               the DataLoader's threads collate, device_prefetch copies each
+               batch on a side stream; 6 steps with the same gates, every
+               batch copied once.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -137,6 +154,10 @@ DENOISE_REL_TOL = 1.5e-2
 # readings in PERF.md
 SPEC8_GRAD_REL_TOL = 3e-2
 SPEC8_DENOISE_REL_TOL = {"eps_v": 2e-2, "eps_a": 2e-2, "h_m": 4e-2}
+# the CLI phases' corpus: flagship-sized clips, a few without video or audio
+CLI_CLIPS, CLI_CLIPS_PER_SHARD, CLI_RESIDENT_CLIPS = 512, 128, 384
+CLI_NO_VIDEO, CLI_NO_AUDIO = (17, 200, 401), (5, 130, 333, 470)
+CLI_STEPS, CLI_RESUME_STEPS, CLI_STREAMED_STEPS = 8, 12, 6
 
 
 def emit(obj) -> None:
@@ -792,6 +813,237 @@ def spec8_v2a_phases(fa):
     return launches, guided_launches
 
 
+def write_cli_corpus(root):
+    """512 flagship-sized clips from np.random.default_rng(0) in 4 shards,
+    through the port's write_record_shards."""
+    from multimodal_diffusion_torch.tools.profile_train import write_corpus
+
+    t0 = time.perf_counter()
+    paths = write_corpus(root / "records", CLI_CLIPS, CLI_CLIPS_PER_SHARD, CLI_NO_VIDEO,
+                         CLI_NO_AUDIO)
+    return root / "records", {"shards": len(paths), "clips": CLI_CLIPS,
+                              "bytes": sum(p.stat().st_size for p in paths),
+                              "seconds": time.perf_counter() - t0}
+
+
+def cli_overlay(root, records, resident: bool, last_step: int) -> str:
+    import yaml
+
+    run = root / ("resident" if resident else "streamed")
+    path = root / f"overlay_{run.name}_{last_step}.yaml"
+    path.write_text(yaml.safe_dump({
+        "paths": {"out_root": str(run), "ckpt_dir": str(run / "ckpt"),
+                  "log_dir": str(run / "logs"), "samples_dir": str(run / "samples")},
+        "data": {"records_dir": str(records), "device_resident": resident,
+                 "resident_max_clips": CLI_RESIDENT_CLIPS},
+        "training": {"log_every": 1, "ckpt_every": last_step}}))
+    return str(path)
+
+
+def run_cli(fa, argv):
+    """train_joint.main(argv) in this process, watched: the kernels' launch
+    counts, each batch as it reaches the step, the batches copied from the
+    host, the restored state, the checkpoint times, the logged metrics and
+    the peak memory."""
+    from unittest import mock
+
+    import torch
+
+    from multimodal_diffusion_torch.datasets import loader
+    from multimodal_diffusion_torch.datasets.records import device_resident_batches
+    from multimodal_diffusion_torch.train import checkpoint as TC
+    from multimodal_diffusion_torch.train import train_joint
+    from multimodal_diffusion_torch.train import trainer as TT
+
+    seen = {"batches": [], "restored": None, "save_s": [], "tree_s": [], "restore_s": [],
+            "logs": []}
+    to_device, restore, to_tree = TT.batch_to_device, TC.restore_state, TC.state_to_tree
+
+    def watch_batch(batch, device):
+        v = batch["video"]
+        seen["batches"].append((type(v).__name__, v.device.type, str(v.dtype))
+                               if isinstance(v, torch.Tensor) else (type(v).__name__,))
+        return to_device(batch, device)
+
+    def watch_restore(state, tree):
+        t0 = time.perf_counter()
+        restore(state, tree)
+        torch.cuda.synchronize()
+        seen["restore_s"].append(time.perf_counter() - t0)
+        seen["restored"] = to_tree(state)
+
+    def watch_tree(state):
+        t0 = time.perf_counter()
+        tree = to_tree(state)
+        seen["tree_s"].append(time.perf_counter() - t0)
+        return tree
+
+    class Manager(TC.CheckpointManager):
+        def save(self, step, tree, meta=None, wait=False):
+            t0 = time.perf_counter()
+            super().save(step, tree, meta=meta, wait=wait)
+            seen["save_s"].append(time.perf_counter() - t0)
+
+        def restore(self, step=None):
+            t0 = time.perf_counter()
+            tree = super().restore(step)
+            seen["restore_s"].append(time.perf_counter() - t0)
+            return tree
+
+    class Writer(train_joint.MetricWriter):
+        def write(self, step, scalars):
+            seen["logs"].append((step, dict(scalars)))
+            super().write(step, scalars)
+
+    reset_launch_counts(fa)
+    copies = loader.copy_to_device.batches
+    device_resident_batches.last_upload = None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(TT, "batch_to_device", watch_batch), \
+            mock.patch.object(train_joint, "restore_state", watch_restore), \
+            mock.patch.object(train_joint, "state_to_tree", watch_tree), \
+            mock.patch.object(train_joint, "CheckpointManager", Manager), \
+            mock.patch.object(train_joint, "MetricWriter", Writer):
+        state = train_joint.main(argv)
+    seen.update(seconds=time.perf_counter() - t0, state=state, launches=launch_counts(fa),
+                host_batch_copies=loader.copy_to_device.batches - copies,
+                upload=device_resident_batches.last_upload,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return seen
+
+
+def check_cli_run(run, steps, resident: bool, what: str):
+    """The gates every CLI run passes; returns its step seconds (from the
+    logged clips_per_sec)."""
+    import numpy as np
+
+    n = len(steps)
+    want = {name: 16 * n for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    if run["launches"] != want:
+        raise AssertionError(f"{what}: kernel launches {run['launches']}, expected {want}")
+    if [s for s, _ in run["logs"]] != list(steps):
+        raise AssertionError(f"{what}: logged steps {[s for s, _ in run['logs']]}")
+    for step, m in run["logs"]:
+        if not np.isfinite([m["loss"], m["grad_norm"]]).all():
+            raise AssertionError(f"{what}: non-finite loss or grad norm at step {step}: {m}")
+    if run["batches"] != [("Tensor", "cuda", "torch.uint8")] * n:
+        raise AssertionError(f"{what}: batches reached the step as {set(run['batches'])}")
+    copies = run["host_batch_copies"]
+    if resident and copies != 0:
+        raise AssertionError(f"{what}: {copies} batches were copied from the host")
+    if not resident and not n <= copies <= n + 3:
+        raise AssertionError(f"{what}: {copies} host batch copies for {n} steps")
+    return [8.0 / m["clips_per_sec"] for _, m in run["logs"]]
+
+
+def spec8_cli_phases(fa):
+    """The train_joint CLI at the flagship, resident (8 steps, then --resume
+    to 12) and streamed (6 steps), on a corpus written here."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from multimodal_diffusion_torch.train.checkpoint import CheckpointManager, state_to_tree
+
+    repo = Path(__file__).resolve().parent
+    (repo / "runs").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=repo / "runs"))
+    configs = [str(repo / "configs" / "mvp.yaml"), str(repo / "configs" / "specificity8.yaml")]
+    try:
+        records, corpus = write_cli_corpus(root)
+        first = run_cli(fa, ["--config", *configs, cli_overlay(root, records, True, CLI_STEPS),
+                             "--max-steps", str(CLI_STEPS)])
+        step_s = check_cli_run(first, range(1, CLI_STEPS + 1), True, "resident")
+        ckpt = CheckpointManager(root / "resident" / "ckpt")
+        if ckpt.latest_step() != CLI_STEPS:
+            raise AssertionError(f"latest checkpoint {ckpt.latest_step()}, expected {CLI_STEPS}")
+        up = first["upload"]
+        if up["clips"] != CLI_RESIDENT_CLIPS:
+            raise AssertionError(f"{up['clips']} clips resident, expected {CLI_RESIDENT_CLIPS}")
+        tree_8 = state_to_tree(first.pop("state"))
+        ema_8 = {k: v.clone() for k, v in tree_8["ema_core"].items()}
+        torch.cuda.empty_cache()
+
+        second = run_cli(fa, ["--config", *configs,
+                              cli_overlay(root, records, True, CLI_RESUME_STEPS), "--resume",
+                              "--max-steps", str(CLI_RESUME_STEPS)])
+        step_s_resumed = check_cli_run(second, range(CLI_STEPS + 1, CLI_RESUME_STEPS + 1), True,
+                                       "resumed")
+        differ = tree_differences(second.pop("restored"), tree_8)
+        if differ:
+            raise AssertionError(f"the restored state differs from step {CLI_STEPS}'s: "
+                                 f"{differ[:5]} ({len(differ)} entries)")
+        if ckpt.latest_step() != CLI_RESUME_STEPS:
+            raise AssertionError(f"latest checkpoint {ckpt.latest_step()} after the resume")
+        if all(torch.equal(v.cpu(), ema_8[k]) for k, v in second.pop("state").ema.items()):
+            raise AssertionError("the EMA did not move after the resume")
+        del tree_8, ema_8
+        shutil.rmtree(root / "resident")
+        torch.cuda.empty_cache()
+
+        streamed = run_cli(fa, ["--config", *configs,
+                                cli_overlay(root, records, False, CLI_STREAMED_STEPS),
+                                "--max-steps", str(CLI_STREAMED_STEPS)])
+        streamed.pop("state")
+        step_s_streamed = check_cli_run(streamed, range(1, CLI_STREAMED_STEPS + 1), False,
+                                        "streamed")
+        if CheckpointManager(root / "streamed" / "ckpt").latest_step() != CLI_STREAMED_STEPS:
+            raise AssertionError("no final checkpoint of the streamed run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # warm steps: not a run's first (the step compiles nothing, but its
+    # launches meet cold caches) and not a decode step (step 8)
+    resident_warm = step_s[1:CLI_STEPS - 1] + step_s_resumed[1:]
+    resident_median = statistics.median(resident_warm)
+    emit({"phase": "spec8_cli_resident", "config": "mvp+specificity8+overlay", "clips": 8,
+          "corpus": corpus, "resident_clips": up["clips"], "resident_bytes": up["bytes"],
+          "upload_s": up["seconds"], "upload_mb_per_s": up["bytes"] / 1e6 / up["seconds"],
+          "step_s": step_s, "resumed_step_s": step_s_resumed,
+          "median_step_s": resident_median, "warm_steps": len(resident_warm),
+          "decode_step_s": step_s[CLI_STEPS - 1], "train_clips_per_s": 8 / resident_median,
+          "first_run_s": first["seconds"], "resumed_run_s": second["seconds"],
+          "save_s": first["save_s"] + second["save_s"],
+          "state_to_tree_s": first["tree_s"] + second["tree_s"],
+          "restore_s": second["restore_s"], "restored_bit_equal": True,
+          "checkpoints": [CLI_STEPS, CLI_RESUME_STEPS],
+          "losses": [m["loss"] for _, m in first["logs"] + second["logs"]],
+          "grad_norms": [m["grad_norm"] for _, m in first["logs"] + second["logs"]],
+          "launches": {k: first["launches"][k] + second["launches"][k]
+                       for k in first["launches"]},
+          "host_batch_copies": first["host_batch_copies"] + second["host_batch_copies"],
+          "peak_mem_gb": max(first["peak_mem_gb"], second["peak_mem_gb"])})
+    streamed_median = statistics.median(step_s_streamed[1:])
+    emit({"phase": "spec8_cli_streamed", "config": "mvp+specificity8+overlay", "clips": 8,
+          "step_s": step_s_streamed, "median_step_s": streamed_median,
+          "resident_median_step_s": resident_median,
+          "train_clips_per_s": 8 / streamed_median, "run_s": streamed["seconds"],
+          "save_s": streamed["save_s"],
+          "losses": [m["loss"] for _, m in streamed["logs"]],
+          "launches": streamed["launches"], "host_batch_copies": streamed["host_batch_copies"],
+          "peak_mem_gb": streamed["peak_mem_gb"]})
+    resident_launches = {k: first["launches"][k] + second["launches"][k]
+                         for k in first["launches"]}
+    return resident_launches, streamed["launches"]
+
+
+def tree_differences(a, b, path="") -> list:
+    """The paths at which two checkpoint trees differ (tensors bit for bit)."""
+    import torch
+
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys {sorted(set(a) ^ set(b))[:3]}"]
+        return [d for k in a for d in tree_differences(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -830,6 +1082,8 @@ def main(argv=None) -> int:
     by_path["spec8_train"] = spec8_train_phase(fa)
     torch.cuda.empty_cache()
     by_path["spec8_v2a"], by_path["spec8_v2a_guided"] = spec8_v2a_phases(fa)
+    torch.cuda.empty_cache()
+    by_path["spec8_cli_resident"], by_path["spec8_cli_streamed"] = spec8_cli_phases(fa)
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}

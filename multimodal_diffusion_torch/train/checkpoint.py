@@ -9,8 +9,12 @@
 
 plus a JSON sidecar ``<dir>/meta_<step>.json``. ``latest_step()`` gives the
 "latest" semantics, ``save`` is idempotent per step, and a directory is
-renamed into place only once complete. Restoring the JAX package's orbax
-checkpoints is not ported.
+renamed into place only once complete. Saves are synchronous: ``save``'s
+``wait`` and the ``wait()`` / ``close()`` methods exist so that callers read
+as the JAX package's (whose orbax saves run in the background), and a config
+with ``training.ckpt_async: true`` gets the same files, written before
+``save`` returns. Restoring the JAX package's orbax checkpoints is not
+ported.
 """
 
 from __future__ import annotations
@@ -38,9 +42,11 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, tree: Dict[str, Any], meta: Optional[Dict] = None) -> None:
-        """Write each top-level entry of `tree` as <key>.pt under <dir>/<step>/.
-        A step that already exists is skipped, not an error."""
+    def save(self, step: int, tree: Dict[str, Any], meta: Optional[Dict] = None,
+             wait: bool = False) -> None:
+        """Write each top-level entry of `tree` as <key>.pt under <dir>/<step>/
+        before returning, whatever `wait` says. A step that already exists is
+        skipped, not an error."""
         step = int(step)
         final = self.dir / str(step)
         if final.exists():
@@ -68,6 +74,12 @@ class CheckpointManager:
     def meta(self, step: int) -> Optional[Dict]:
         p = self.dir / f"meta_{int(step)}.json"
         return json.loads(p.read_text()) if p.exists() else None
+
+    def wait(self) -> None:
+        """Every save has finished when it returns: nothing to wait for."""
+
+    def close(self) -> None:
+        """No background writer to stop."""
 
 
 def state_to_tree(state) -> Dict[str, Any]:

@@ -15,8 +15,9 @@ trainer's ``torch.Generator``; the step body takes them as arguments, so a
 test hands both frameworks the same numpy draws. Dropout draws from the same
 generator. Nothing uses torch's global RNG.
 
-``parallel.model > 1`` raises ``NotImplementedError`` until its slice. The
-JAX loop's MFU logging waits for a profiling module calibrated on the H100.
+``parallel.model > 1`` and ``parallel.remat_core`` raise
+``NotImplementedError`` until their slices. The JAX loop's MFU logging waits
+for a profiling module calibrated on the H100.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
+from ..datasets.loader import copy_to_device, device_prefetch
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
 from ..models.mmdit import set_dropout_generator
 from ..ops import schedule as S
@@ -455,8 +457,12 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     recon_every = 1 if recon_every is None else int(recon_every)
     if recon_every < 1:
         raise ValueError(f"training.recon_every must be >= 1, got {recon_every}")
-    if int((cfg.get("parallel", {}) or {}).get("model", 1) or 1) > 1:
+    par = cfg.get("parallel", {}) or {}
+    if int(par.get("model", 1) or 1) > 1:
         raise NotImplementedError("parallel.model > 1 (tensor parallelism) is not ported yet")
+    if bool(par.get("remat_core", False)):
+        raise NotImplementedError("parallel.remat_core (recomputing the core's blocks in "
+                                  "the backward pass) is not ported yet")
     ema_cfg = t_cfg.get("ema", {"use_ema": True, "decay": 0.999}) or {}
     ema_scope = str(ema_cfg.get("scope", "core"))
     if ema_scope not in ("core", "all"):
@@ -516,12 +522,17 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
 def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, Any]], *,
                  max_steps: Optional[int] = None, log_fn=None, checkpoint_fn=None,
                  val_fn=None, should_stop=None) -> TrainState:
-    """Drive the step over a host batch iterator.
+    """Drive the step over a batch iterator: host batches (numpy) or batches
+    already on the device (``datasets/records.py::device_resident_batches``).
 
-    Each batch's target is its own "target" entry when it names a modality,
-    else the next pick of the Any2AnySchedule (seeded by cfg['seed']). A
-    modality missing from a batch is zero-filled (its has_* mask keeps it
-    out of the loss). log_fn(step, metrics) every `log_every` steps with the
+    A background thread (``datasets/loader.py::device_prefetch``, depth
+    ``data.prefetch_factor``) prepares each batch ahead of the step: its
+    target is its own "target" entry when that names a modality, else the
+    next pick of the Any2AnySchedule (seeded by cfg['seed']); a modality
+    missing from it is zero-filled (its has_* mask keeps it out of the
+    loss); on a CUDA device its host arrays are copied there on a side
+    stream while the previous step runs, and tensors already there pass
+    through untouched. log_fn(step, metrics) every `log_every` steps with the
     interval's mean metrics, steps_per_sec and clips_per_sec (one host sync
     per interval; with training.recon_every = K > 1 the steps without the
     decode count as loss_recon 0, so the logged loss_recon, and its share of
@@ -539,9 +550,9 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     B, _, T, H, W = bundle.latent_shapes["video"]
     data_cfg = cfg.get("data", {}) or {}
     device_pre = bool(data_cfg.get("device_preprocess", bool(data_cfg.get("records_dir"))))
-    pending: List[Dict[str, torch.Tensor]] = []
-    t_last = time.perf_counter()
-    for batch in islice(batches, max(0, max_steps - state.step)):
+
+    def prep_and_put(batch):
+        """The batch's target, zero-fill and copy (on the prefetch thread)."""
         target = batch.get("target")
         if isinstance(target, set):
             target = next(iter(target)) if target else "audio"
@@ -552,25 +563,36 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
                          else np.zeros(bundle.latent_shapes["video"], np.float32))
         if batch.get("audio") is None:
             batch = dict(batch, audio=np.zeros(bundle.latent_shapes["audio"], np.float32))
-        metrics = bundle.train_step(state, batch, 1.0 if target == "video" else 0.0)
-        if log_fn is not None:
-            pending.append(metrics)
-        step = state.step
-        if log_fn is not None and step % log_every == 0:
-            keys = list(pending[0])
-            vals = torch.stack([torch.stack([m[k].float() for k in keys])
-                                for m in pending]).mean(dim=0).tolist()
-            now = time.perf_counter()
-            dt = (now - t_last) / len(pending)
-            agg = dict(zip(keys, vals), steps_per_sec=1.0 / dt, clips_per_sec=B / dt)
-            t_last = now
-            log_fn(step, agg)
-            pending = []
-        if checkpoint_fn is not None and step % ckpt_every == 0:
-            checkpoint_fn(step, state)
-        if val_fn is not None and val_every and step % val_every == 0:
-            val_fn(step, state)
-        if should_stop is not None and should_stop():
-            print(f"[preempt] stop requested; exiting at step {step}")
-            break
+        return copy_to_device(batch, bundle.device), 1.0 if target == "video" else 0.0
+
+    pending: List[Dict[str, torch.Tensor]] = []
+    t_last = time.perf_counter()
+    depth = int(data_cfg.get("prefetch_factor", 2) or 2)
+    stream = device_prefetch(islice(batches, max(0, max_steps - state.step)), prep_and_put,
+                             depth=depth, device=bundle.device)
+    try:
+        for batch, target_is_video in stream:
+            metrics = bundle.train_step(state, batch, target_is_video)
+            if log_fn is not None:
+                pending.append(metrics)
+            step = state.step
+            if log_fn is not None and step % log_every == 0:
+                keys = list(pending[0])
+                vals = torch.stack([torch.stack([m[k].float() for k in keys])
+                                    for m in pending]).mean(dim=0).tolist()
+                now = time.perf_counter()
+                dt = (now - t_last) / len(pending)
+                agg = dict(zip(keys, vals), steps_per_sec=1.0 / dt, clips_per_sec=B / dt)
+                t_last = now
+                log_fn(step, agg)
+                pending = []
+            if checkpoint_fn is not None and step % ckpt_every == 0:
+                checkpoint_fn(step, state)
+            if val_fn is not None and val_every and step % val_every == 0:
+                val_fn(step, state)
+            if should_stop is not None and should_stop():
+                print(f"[preempt] stop requested; exiting at step {step}")
+                break
+    finally:
+        stream.close()
     return state

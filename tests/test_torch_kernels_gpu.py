@@ -414,3 +414,76 @@ class _PlainAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = t_fa.flash_backward_reference(q, k, v, out, lse, dout.contiguous())
         return dq, dk, dv, None, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copy_delay", [0, 60_000_000], ids=["step_long", "copy_late"])
+def test_device_prefetch_side_stream_copy(cuda, copy_delay):
+    """Host batches go to the card on device_prefetch's side stream while a
+    spin kernel holds the current stream: each consumed batch equals its host
+    source. The host never waits for the card inside the loop, so every
+    comparison is still queued behind the spins when the next batches are
+    copied. copy_late holds each copy back behind a longer spin on the side
+    stream: a consumer that did not wait for the copy's event would compare
+    before the batch lands. step_long frees each batch while its comparison
+    waits: a batch is one 32 MiB block (a segment of its own in the caching
+    allocator), which a later copy would take and overwrite if the batch had
+    not been marked as used on the consumer's stream."""
+    import numpy as np
+
+    from multimodal_diffusion_torch.datasets.loader import copy_to_device, device_prefetch
+
+    rng = np.random.default_rng(0)
+    hosts = [{"video": rng.integers(0, 256, (32, 1024, 1024), dtype=np.uint8),
+              "has_video": np.ones(4, bool)} for _ in range(8)]
+    refs = [{k: torch.from_numpy(v).to(cuda) for k, v in h.items()} for h in hosts]
+    torch.cuda.synchronize()
+
+    def put(h):
+        if copy_delay:
+            torch.cuda._sleep(copy_delay)  # on the side stream, before the copy
+        return copy_to_device(h, cuda)
+
+    copies = copy_to_device.batches
+    mismatches = []
+    for ref, b in zip(refs, device_prefetch(iter(hosts), put, depth=2, device=cuda)):
+        assert b["video"].is_cuda and b["video"].dtype == torch.uint8
+        assert b["has_video"].dtype == torch.bool
+        torch.cuda._sleep(20_000_000 if copy_delay else 80_000_000)
+        mismatches.append(sum((b[k] != ref[k]).sum() for k in ref))
+        del b  # freed while the comparison still waits behind the spins
+    assert len(mismatches) == len(hosts)
+    assert int(torch.stack(mismatches).sum()) == 0
+    assert copy_to_device.batches - copies == len(hosts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_preprocess", [True, False])
+def test_device_resident_upload_in_chunks(cuda, tmp_path, device_preprocess):
+    """40 flagship-sized clips (94 MB of uint8 video: two 64 MB staging
+    chunks) uploaded to the card hold what the CPU corpus holds, and the
+    gathered batches are the CPU path's, each on the card."""
+    import numpy as np
+
+    from multimodal_diffusion_torch.datasets import records as TR
+    from multimodal_diffusion_torch.datasets.loader import copy_to_device
+
+    rng = np.random.default_rng(3)
+    TR.write_record_shards(
+        ({"video": rng.integers(0, 256, (48, 128, 128, 3), dtype=np.uint8),
+          "audio": None if i == 5 else rng.standard_normal(48000).astype(np.float32)}
+         for i in range(40)), tmp_path, video_shape=(48, 128, 128, 3), audio_shape=(48000,),
+        clips_per_shard=16)
+    ds = TR.RecordDataset(tmp_path, device_preprocess=device_preprocess)
+    on_card = TR.device_resident_batches(ds, cuda, 8, seed=2, max_clips=36)
+    up = TR.device_resident_batches.last_upload
+    on_cpu = TR.device_resident_batches(ds, "cpu", 8, seed=2, max_clips=36)
+    assert up["clips"] == 36
+    copies = copy_to_device.batches
+    for _ in range(10):
+        a, b = next(on_card), next(on_cpu)
+        assert a["video"].is_cuda
+        assert a["video"].dtype == (torch.uint8 if device_preprocess else torch.float32)
+        for k in b:
+            assert torch.equal(a[k].cpu(), b[k]), k
+    assert copy_to_device.batches == copies

@@ -13,6 +13,7 @@ import torch
 from _torch_parity import jax_model_and_params, shrunk_cfg, shrunk_flagship_cfg
 from multimodal_diffusion_torch.infer import sample_clip
 from multimodal_diffusion_torch.models.diffusion import AVDiffusionConfig, AVDiffusionModel
+from multimodal_diffusion_torch.train import train_joint
 from multimodal_diffusion_torch.train.trainer import create_trainer
 from multimodal_diffusion_torch.utils import io as tio
 from multimodal_diffusion_torch.utils.convert import jax_params_to_state_dict, torch_key
@@ -119,12 +120,16 @@ def test_entry_points_raise_without_cuda(no_cuda):
                           str(REPO / "configs" / "v2a.yaml"), "--frames", "unused"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_trainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_joint.main(["--config", str(REPO / "configs" / "mvp.yaml"),
+                          str(REPO / "configs" / "specificity8.yaml")])
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     """Exactly these still raise NotImplementedError: parallel.context,
-    parallel.pipe, parallel.model > 1, quant: int8, the variational VAE and
-    restoring an orbax checkpoint."""
+    parallel.pipe, parallel.model > 1, parallel.remat_core, quant: int8, the
+    variational VAE, train_joint under WORLD_SIZE > 1 and restoring an orbax
+    checkpoint."""
     from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
     from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
 
@@ -134,6 +139,11 @@ def test_unported_options_raise():
             AVDiffusionConfig.from_config({**cfg, "parallel": {key: 2}})
     with pytest.raises(NotImplementedError):
         create_trainer({**cfg, "parallel": {"model": 2}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="remat_core"):
+        create_trainer({**cfg, "parallel": {"remat_core": True}}, device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+        train_joint.main(["--config", str(REPO / "configs" / "mvp.yaml"), "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         MMDiT(MMDiTConfig(d_model=64, n_layers=1, n_heads=4, quant="int8"))
     with pytest.raises(NotImplementedError):
