@@ -73,6 +73,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                the DataLoader's threads collate, device_prefetch copies each
                batch on a side stream; 6 steps with the same gates, every
                batch copied once.
+ 11. ref_ckpt — the reference implementation's own trained weights
+               (docs/parity/ref_run/step_650.pt, d=256, 4 layers, 4 heads of
+               64, its config's fp32 compute) through build_components +
+               sample_one_direction, live and EMA: v2a and a2v, B=8, the
+               config's 25 sampler steps, exactly 25 x 4 forward launches a
+               batch; one denoise_tokens with and without the kernel within
+               the mvp phase's tolerance; a finite wav in [-1, 1] and uint8
+               frames; the eval scores of each v2a clip against its prompt
+               (estimate_av_sync, log-mel statistics), printed, gated on
+               finiteness only;
+ 12. orbax_fixture — the JAX package's committed orbax checkpoint
+               (tests/torch_fixtures/orbax_spec8_tiny: the flagship's options
+               at d=64, 2 layers, bf16 moments, two JAX train steps) read by
+               the port's reader without orbax: every leaf's sha256 equal to
+               leaves.json; build_components from it and one B=2 v2a batch;
+               create_trainer + restore_jax_state + one train step: a finite
+               loss, each kernel's exact launch count, moments and EMA that
+               move; then the three kernels at the fixture's own fp32
+               operands (2 heads of 32) against their plain versions, at the
+               v2a batch's and the train step's shapes, masked and unmasked,
+               and on the restored weights one denoise_tokens and one train
+               gradient with and without the kernels; the libzstd path and
+               version;
+ 13. spec8_stream — the flagship (N(0, 0.02) weights) through
+               infer/stream_infer.py: an 11 s prompt of 176 frames is 9
+               windows, two batches of 8 (the second padded), exactly
+               2 x 800 forward launches, 176,000 stitched samples, finite, in
+               [-1, 1]; the stream's wall seconds beside one spec8_v2a batch.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -90,6 +118,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -154,6 +183,11 @@ DENOISE_REL_TOL = 1.5e-2
 # readings in PERF.md
 SPEC8_GRAD_REL_TOL = 3e-2
 SPEC8_DENOISE_REL_TOL = {"eps_v": 2e-2, "eps_a": 2e-2, "h_m": 4e-2}
+# the same two checks on the orbax fixture's restored weights, fp32 (TF32
+# off) at 2 heads of 32: both paths round only to fp32, which the kernels
+# hold to 1e-4 absolute elementwise (TOL, BWD_TOL) and the H100 read ~1e-6
+# relative on the reference weights' denoise_tokens (ref_ckpt)
+FIXTURE_REL_TOL = 1e-4
 # the CLI phases' corpus: flagship-sized clips, a few without video or audio
 CLI_CLIPS, CLI_CLIPS_PER_SHARD, CLI_RESIDENT_CLIPS = 512, 128, 384
 CLI_NO_VIDEO, CLI_NO_AUDIO = (17, 200, 401), (5, 130, 333, 470)
@@ -942,7 +976,6 @@ def spec8_cli_phases(fa):
     to 12) and streamed (6 steps), on a corpus written here."""
     import shutil
     import tempfile
-    from pathlib import Path
 
     import torch
 
@@ -1044,6 +1077,337 @@ def tree_differences(a, b, path="") -> list:
     return [] if a == b else [path]
 
 
+REPO = Path(__file__).resolve().parent
+REF_DIR = "docs/parity/ref_run"
+FIXTURE = "tests/torch_fixtures/orbax_spec8_tiny"
+STREAM_FRAMES = 176  # 11 s at 16 fps: 9 windows of 3 s every 1 s
+
+
+def prompt_frames(clips, T, H, W, seed):
+    """uint8 frames [clips, T, H, W, 3]: seeded noise with a centre block
+    whose brightness follows a per-clip rhythm (a motion envelope with
+    structure for the sync score)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 96, (clips, T, H, W, 3)).astype(np.float32)
+    t = np.arange(T)[None, :]
+    level = 127 + 120 * np.sin(2 * np.pi * t * rng.uniform(0.5, 3.0, (clips, 1)) / 16.0)
+    frames[:, :, H // 4:3 * H // 4, W // 4:3 * W // 4, :] = level[:, :, None, None, None]
+    return frames.astype(np.uint8)
+
+
+def eval_scores(frames, wav, sr, fps):
+    """Per clip: estimate_av_sync's (lag s, correlation) of the clip against
+    its prompt frames, and its log-mel mean and std."""
+    import numpy as np
+
+    from multimodal_diffusion_torch.eval.audio_quality import logmel_default
+    from multimodal_diffusion_torch.eval.av_sync import estimate_av_sync
+
+    out = []
+    for f, w in zip(frames, wav):
+        lag, corr = estimate_av_sync(f, w, sr=sr, fps=fps)
+        lm = logmel_default(w, sr)
+        out.append({"lag_s": lag, "corr": corr, "logmel_mean": float(lm.mean()),
+                    "logmel_std": float(lm.std())})
+    if not all(np.isfinite(list(d.values())).all() for d in out):
+        raise AssertionError(f"non-finite eval scores {out}")
+    return out
+
+
+def ref_ckpt_phase(fa):
+    """The reference's trained weights through the public entry points."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_clip import (build_components,
+                                                              config_with_checkpoint,
+                                                              sample_one_direction)
+    from multimodal_diffusion_torch.utils.io import latent_shapes_from_config, load_config
+
+    cfg = config_with_checkpoint(load_config(REPO / REF_DIR / "config.yaml"),
+                                 str(REPO / REF_DIR / "step_650.pt"))
+    steps = int(cfg["diffusion"]["audio"]["sampler_steps"])
+    n_layers = cfg["model"]["core"]["n_layers"]
+    expected = steps * n_layers
+    sr, fps = int(cfg["audio"]["sr"]), int(cfg["video"]["fps"])
+    _, _, T, H, W = latent_shapes_from_config(cfg, V2A_CLIPS)["video"]
+    frames = prompt_frames(V2A_CLIPS, T, H, W, seed=11)
+    tt = np.arange(int(round(float(cfg["data"]["clip_seconds"]) * sr))) / sr
+    audio = (0.5 * np.sin(2 * np.pi * 220 * tt) * (np.sin(2 * np.pi * 2 * tt) > 0)
+             )[None].repeat(V2A_CLIPS, 0).astype(np.float32)
+    launches, record = {}, {"phase": "ref_ckpt", "checkpoint": f"{REF_DIR}/step_650.pt",
+                            "config": f"{REF_DIR}/config.yaml", "clips": V2A_CLIPS,
+                            "steps": steps, "compute_dtype": "float32", "weights": {}}
+    for use_ema in (False, True):
+        t0 = time.perf_counter()
+        model = build_components(cfg, device="cuda", use_ema=use_ema)
+        load_s = time.perf_counter() - t0
+        if sum(p.numel() for p in model.parameters()) != 5_250_996:
+            raise AssertionError("the reference model is not d=256, 4 layers")
+        rec = {"load_s": load_s}
+        for direction in ("v2a", "a2v"):
+            kw = ({"prompt_modality": "video", "prompt_video": frames} if direction == "v2a"
+                  else {"prompt_modality": "audio", "prompt_audio": audio})
+            times = []
+            for rep in range(2):
+                reset_launch_counts(fa)
+                t0 = time.perf_counter()
+                out = sample_one_direction(cfg=cfg, model=model, device="cuda",
+                                           generator=torch.Generator().manual_seed(3), **kw)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                got = launch_counts(fa)
+                if got != {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
+                    raise AssertionError(f"reference {direction}: launches {got}, expected "
+                                         f"{expected} forward")
+                launches["flash_fwd"] = launches.get("flash_fwd", 0) + got["flash_fwd"]
+            if direction == "v2a":
+                wav = out["audio"]
+                if wav.shape != (V2A_CLIPS, len(tt)) or not np.all(np.isfinite(wav)) or \
+                        np.abs(wav).max() > 1:
+                    raise AssertionError(f"bad reference v2a output {wav.shape}")
+                rec["v2a"] = {"batch_s": times, "wav_max_abs": float(np.abs(wav).max()),
+                              "eval": eval_scores(frames, wav, sr, fps)}
+            else:
+                vid = out["video"]
+                if vid.shape != (V2A_CLIPS, T, H, W, 3) or vid.dtype != np.uint8:
+                    raise AssertionError(f"bad reference a2v output {vid.shape} {vid.dtype}")
+                rec["a2v"] = {"batch_s": times, "frames_mean": float(vid.mean())}
+        # one denoiser forward, kernel vs dense attention, on these weights
+        rng = np.random.default_rng(0)
+        B2 = 2 * V2A_CLIPS
+        tok_v = torch.from_numpy(rng.normal(size=(B2, 96, 256)).astype(np.float32)).cuda()
+        tok_a = torch.from_numpy(rng.normal(size=(B2, 37, 32)).astype(np.float32)).cuda()
+        t_v = torch.zeros(B2, dtype=torch.long, device="cuda")
+        t_a = torch.from_numpy(rng.integers(0, 1000, B2)).cuda()
+        keep = torch.cat([torch.ones(V2A_CLIPS), torch.zeros(V2A_CLIPS)]).cuda()
+        with torch.inference_mode():
+            a, b = (model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None,
+                                         use_kernel=k) for k in (True, False))
+        rel = {key: float((a[key].float() - b[key].float()).abs().max()
+                          / b[key].float().abs().max()) for key in ("eps_v", "eps_a")}
+        if max(rel.values()) > DENOISE_REL_TOL:
+            raise AssertionError(f"reference denoise_tokens kernel vs dense: {rel}")
+        rec["denoise_kernel_vs_dense_rel_err"] = rel
+        record["weights"]["ema" if use_ema else "live"] = rec
+        del model
+        torch.cuda.empty_cache()
+    record.update(launches_per_batch=expected, rel_tol=DENOISE_REL_TOL,
+                  launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(record)
+    return launches
+
+
+def fixture_kernel_checks(fa, cfg, model, bundle, batch, frames):
+    """The three kernels at the orbax fixture's own operands (fp32, its
+    heads of 32): each against its plain version on seeded operands of the
+    v2a batch's and the train step's attention shapes, masked and unmasked;
+    then one denoise_tokens on the restored weights as the v2a sampler calls
+    it (CFG-doubled, mouth tokens) and one gradient of the restored train
+    step's loss, each with and without the kernels."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.train import trainer as TT
+
+    dev = torch.device("cuda")
+    B = frames.shape[0]
+    mc = model.cfg
+    rng = np.random.default_rng(16)
+    Ca, Fa = (int(cfg["audio"]["latent"][k]) for k in ("channels", "frames_per_clip"))
+    with torch.inference_mode():
+        video = torch.as_tensor(frames).to(dev, torch.float32).permute(0, 4, 1, 2, 3) / 255.0
+        z_v = model.encode_video(video)
+        tok_v = model.tokenize_video(z_v)
+        tok_a = model.tokenize_audio(torch.from_numpy(
+            rng.normal(size=(B, Ca, Fa)).astype(np.float32)).to(dev))
+        tok_m = model.mouth_tokens(video)
+        mgrid = model.mouth_grid(z_v.shape[2] * mc.vae.t_down)
+        keep = torch.cat([torch.ones(B), torch.zeros(B)]).to(dev)
+        t_v = torch.zeros(2 * B, dtype=torch.long, device=dev)
+        t_a = torch.from_numpy(rng.integers(0, 1000, 2 * B)).to(dev)
+        a, b = (model.denoise_tokens(
+            torch.cat([tok_v, tok_v]), torch.cat([tok_a, tok_a]), t_v, t_a,
+            model.video_grid(z_v.shape), keep, None, use_kernel=use_kernel,
+            tok_m=torch.cat([tok_m, tok_m]), keep_m=keep, mouth_grid=mgrid)
+            for use_kernel in (True, False))
+    dtype = a["h_v"].dtype
+    N = tok_v.shape[1] + tok_a.shape[1] + tok_m.shape[1]
+    H = mc.core.n_heads
+    Dh = mc.core.d_model // H
+    denoise_rel = {key: float((a[key] - b[key]).abs().max() / b[key].abs().max())
+                   for key in ("eps_v", "eps_a", "h_m")}
+    if dtype != torch.float32 or max(denoise_rel.values()) > FIXTURE_REL_TOL:
+        raise AssertionError(f"fixture denoise_tokens kernel vs dense ({dtype}): "
+                             f"{denoise_rel} (tol {FIXTURE_REL_TOL})")
+
+    cases = {}
+    for name, shape in (("fixture_v2a", (2 * B, H, N, Dh)), ("fixture_train", (B, H, N, Dh))):
+        for n_masked in (0, 5):
+            g = torch.Generator(device=dev).manual_seed(80 + shape[0] + n_masked)
+            q, k, v, dout = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+            valid, n_valid = None, [N] * shape[0]
+            if n_masked:
+                valid = torch.ones((shape[0], N), dtype=torch.bool, device=dev)
+                valid[0, N - n_masked:] = False
+                n_valid[0] = N - n_masked
+            out, lse, err_out, err_lse = forward_check(fa, name, q, k, v, valid, n_valid)
+            errs, rel = backward_check(fa, name, q, k, v, valid, out, lse, dout, n_valid)
+            cases[f"{name}_masked{n_masked}"] = {
+                "shape": list(shape), "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+                "bwd_max_abs_err": errs, "bwd_rel_err": rel}
+
+    grads, n_qkv, qkv_rel, norms = kernel_vs_dense_grads(TT, bundle, batch)
+    del grads
+    norm_rel = abs(norms[True] - norms[False]) / norms[False]
+    if n_qkv != cfg["model"]["core"]["n_layers"] or max(qkv_rel, norm_rel) > FIXTURE_REL_TOL:
+        raise AssertionError(f"fixture train grads with the kernels vs dense: qkv {qkv_rel}, "
+                             f"norm {norm_rel} (tol {FIXTURE_REL_TOL}, {n_qkv} qkv grads)")
+    return {"dtype": "float32", "tokens": N, "heads": H, "head_dim": Dh, "kernels": cases,
+            "tol": {"out": TOL["float32"], "bwd": BWD_TOL["float32"],
+                    "kernel_vs_dense_rel": FIXTURE_REL_TOL},
+            "denoise_kernel_vs_dense_rel_err": denoise_rel,
+            "grad_check": {"qkv_weight_rel_err": qkv_rel, "grad_norm_rel_err": norm_rel}}
+
+
+def orbax_fixture_phase(fa):
+    """The JAX package's committed orbax checkpoint, read and used by the
+    port on the card."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_clip import (build_components,
+                                                              config_with_checkpoint,
+                                                              sample_one_direction)
+    from multimodal_diffusion_torch.train import orbax_reader as R
+    from multimodal_diffusion_torch.train.checkpoint import restore_jax_state
+    from multimodal_diffusion_torch.train.trainer import create_trainer
+    from multimodal_diffusion_torch.utils import zstd
+    from multimodal_diffusion_torch.utils.io import latent_shapes_from_config, load_config
+
+    root = REPO / FIXTURE
+    files = sum(p.stat().st_size for p in (root / "ckpt").rglob("*") if p.is_file())
+    t0 = time.perf_counter()
+    step, tree = R.read_orbax_checkpoint(root / "ckpt")
+    read_s = time.perf_counter() - t0
+    leaves = {"/".join(path): t for path, t in R.tree_leaves(tree)}
+    records = {r["path"]: r for r in json.loads((root / "leaves.json").read_text())}
+    if leaves.keys() != records.keys():
+        raise AssertionError(f"leaves differ from leaves.json: "
+                             f"{sorted(set(leaves) ^ set(records))[:5]}")
+    for path, t in leaves.items():
+        bits = t.view(torch.uint16) if t.dtype == torch.bfloat16 else t
+        if hashlib.sha256(bits.numpy().tobytes()).hexdigest() != records[path]["sha256"]:
+            raise AssertionError(f"leaf {path}: sha256 differs from leaves.json")
+    leaf_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+
+    cfg = load_config(root / "config.yaml")
+    n_layers = cfg["model"]["core"]["n_layers"]
+    steps = int(cfg["diffusion"]["audio"]["sampler_steps"])
+    model = build_components(config_with_checkpoint(cfg, str(root / "ckpt")), device="cuda",
+                             use_ema=True)
+    shapes = latent_shapes_from_config(cfg, 2)
+    _, _, T, H, W = shapes["video"]
+    frames = prompt_frames(2, T, H, W, seed=12)
+    reset_launch_counts(fa)
+    wav = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
+                               prompt_video=frames, device="cuda")["audio"]
+    v2a_launches = launch_counts(fa)
+    if v2a_launches != {"flash_fwd": steps * n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
+        raise AssertionError(f"fixture v2a launches {v2a_launches}")
+    if not np.all(np.isfinite(wav)) or np.abs(wav).max() > 1:
+        raise AssertionError("bad fixture v2a output")
+
+    bundle = create_trainer(cfg, device="cuda")
+    t0 = time.perf_counter()
+    restore_jax_state(bundle.state, tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state = bundle.state
+    if state.step != step:
+        raise AssertionError(f"restored step {state.step}, expected {step}")
+    before = {"mu": [m.clone() for m in state.optimizer.mu],
+              "nu": [v.clone() for v in state.optimizer.nu],
+              "ema": {k: v.clone() for k, v in state.ema.items()}}
+    rng = np.random.default_rng(13)
+    batch = {"video": prompt_frames(2, T, H, W, seed=14),
+             "audio": rng.uniform(-1, 1, shapes["audio"]).astype(np.float32),
+             "has_video": np.ones(2, bool), "has_audio": np.ones(2, bool)}
+    reset_launch_counts(fa)
+    metrics = bundle.train_step(state, batch, 0.0)
+    train_launches = launch_counts(fa)
+    loss = float(metrics["loss"])
+    if train_launches != {name: n_layers for name in train_launches}:
+        raise AssertionError(f"restored train step launches {train_launches}")
+    if not np.isfinite(loss) or state.step != step + 1:
+        raise AssertionError(f"restored train step: loss {loss}, step {state.step}")
+    moved = {"mu": any(not torch.equal(a, b) for a, b in zip(state.optimizer.mu, before["mu"])),
+             "nu": any(not torch.equal(a, b) for a, b in zip(state.optimizer.nu, before["nu"])),
+             "ema": any(not torch.equal(v, before["ema"][k]) for k, v in state.ema.items())}
+    if not all(moved.values()):
+        raise AssertionError(f"did not move after the restored step: {moved}")
+    checks = fixture_kernel_checks(fa, cfg, model, bundle, batch, frames)
+    lib = zstd.library()
+    emit({"phase": "orbax_fixture", "fixture": FIXTURE, "step": step, "leaves": len(leaves),
+          "leaf_bytes": leaf_bytes, "file_bytes": files, "read_s": read_s,
+          "read_mb_per_s": leaf_bytes / 1e6 / read_s, "sha256_equal_leaves_json": True,
+          "v2a_launches": v2a_launches, "wav_shape": list(wav.shape),
+          "restore_s": restore_s, "train_loss": loss, "train_launches": train_launches,
+          "moved": moved, "moments_dtype": str(state.optimizer.mv_dtype),
+          "kernel_checks": checks, "libzstd": {"path": lib.path, "version": zstd.version()}})
+    return {k: v2a_launches[k] + train_launches[k] for k in train_launches}
+
+
+def spec8_stream_phase(fa):
+    """The flagship through sliding-window streaming."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.infer.stream_infer import (split_frames_into_windows,
+                                                               stream_config,
+                                                               stream_video_to_audio)
+    from multimodal_diffusion_torch.tools.profile_v2a import v2a_workload
+
+    cfg, model, run = v2a_workload(V2A_CLIPS, V2A_STEPS, config="specificity8")
+    win_s, hop_s, _, max_batch = stream_config(cfg)
+    fps, sr = int(cfg["video"]["fps"]), int(cfg["audio"]["sr"])
+    H, W = cfg["video"]["size"]
+    frames = prompt_frames(1, STREAM_FRAMES, H, W, seed=15)[0]
+    windows = split_frames_into_windows(frames, fps, win_s, hop_s)[0].shape[0]
+    batches = -(-windows // max_batch)
+    if (windows, max_batch, batches) != (9, 8, 2):
+        raise AssertionError(f"{windows} windows in batches of {max_batch}")
+    run()  # warm: the same shapes as a stream batch
+    t0 = time.perf_counter()
+    run()
+    batch_s = time.perf_counter() - t0
+    reset_launch_counts(fa)
+    t0 = time.perf_counter()
+    wav = stream_video_to_audio(frames, cfg=cfg, model=model, device="cuda")
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    n_layers = cfg["model"]["core"]["n_layers"]
+    want = {"flash_fwd": batches * V2A_STEPS * n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if launches != want:
+        raise AssertionError(f"stream launches {launches}, expected {want}")
+    samples = (windows - 1) * int(round(sr * hop_s)) + int(round(sr * win_s))
+    if wav.shape != (samples,) or samples != 176_000 or not np.all(np.isfinite(wav)) or \
+            np.abs(wav).max() > 1:
+        raise AssertionError(f"bad stitched audio: {wav.shape}, max {np.abs(wav).max()}")
+    emit({"phase": "spec8_stream", "config": "mvp+specificity8", "prompt_frames": STREAM_FRAMES,
+          "windows": windows, "max_batch_windows": max_batch, "batches": batches,
+          "steps": V2A_STEPS, "stream_s": stream_s, "spec8_v2a_batch_s": batch_s,
+          "stream_vs_batch": stream_s / batch_s, "audio_samples": int(wav.shape[0]),
+          "audio_seconds": wav.shape[0] / sr, "wav_max_abs": float(np.abs(wav).max()),
+          "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -1084,6 +1448,12 @@ def main(argv=None) -> int:
     by_path["spec8_v2a"], by_path["spec8_v2a_guided"] = spec8_v2a_phases(fa)
     torch.cuda.empty_cache()
     by_path["spec8_cli_resident"], by_path["spec8_cli_streamed"] = spec8_cli_phases(fa)
+    torch.cuda.empty_cache()
+    by_path["ref_ckpt"] = ref_ckpt_phase(fa)
+    torch.cuda.empty_cache()
+    by_path["orbax_fixture"] = orbax_fixture_phase(fa)
+    torch.cuda.empty_cache()
+    by_path["spec8_stream"] = spec8_stream_phase(fa)
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}

@@ -6,10 +6,13 @@
       --frames path/to/frames_dir --out-audio out.wav
 
 Runs on CUDA unless ``--device cpu`` (the entry points raise when CUDA is
-asked for and absent). Weights come from the port's own checkpoint at
-``paths.ckpt_path`` (``train/checkpoint.py``), from a JAX params tree carried
-across by ``utils/convert.py``, or from a seeded random init; restoring an
-orbax checkpoint of the JAX package is not ported yet.
+asked for and absent). Weights come from a JAX params tree carried across by
+``utils/convert.py``, else from ``paths.ckpt_path`` (``--ckpt``): a
+checkpoint directory, ``<dir>/latest`` or ``<dir>/<step>`` holding the
+port's own checkpoints (``train/checkpoint.py``) or the JAX package's orbax
+ones (read by ``train/orbax_reader.py``, told apart per step directory), or
+the reference implementation's ``.pt`` file
+(``utils/reference_checkpoint.py``); else from a seeded random init.
 """
 
 from __future__ import annotations
@@ -23,22 +26,20 @@ import numpy as np
 import torch
 
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
-from ..train.checkpoint import CheckpointManager, params_only_tree
+from ..train.checkpoint import (CheckpointManager, checkpoint_format, jax_params_only,
+                                params_only_tree)
+from ..train.orbax_reader import read_orbax_step
 from ..utils.convert import load_jax_params
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
+from ..utils.reference_checkpoint import reference_state_dict
 from .ddim import sampler_from_config
 
 Device = Union[str, torch.device]
 
 
-def _checkpoint_dir(cfg: Dict) -> Tuple[Optional[Path], Optional[int]]:
+def split_checkpoint_path(ckpt: Path) -> Tuple[Path, Optional[int]]:
     """paths.ckpt_path -> (checkpoint directory, step or None for the
     latest)."""
-    paths = cfg.get("paths", {}) or {}
-    ckpt = paths.get("ckpt_path") or paths.get("ckpt")
-    if not ckpt:
-        return None, None
-    ckpt = Path(str(ckpt))
     if ckpt.name == "latest":
         return ckpt.parent, None
     if ckpt.name.isdigit():
@@ -46,28 +47,59 @@ def _checkpoint_dir(cfg: Dict) -> Tuple[Optional[Path], Optional[int]]:
     return ckpt, None
 
 
-def _restore(ckpt_dir: Path, step: Optional[int], use_ema: bool) -> Optional[Dict]:
-    """The state_dict of the port's checkpoint in `ckpt_dir`, or None when
-    the directory holds no checkpoint."""
+def checkpoint_location(ckpt) -> Optional[Path]:
+    """The reference ``.pt`` file or the step directory that a
+    paths.ckpt_path value names; None when it names nothing that exists or a
+    directory without checkpoints."""
+    ckpt = Path(str(ckpt))
+    if ckpt.suffix == ".pt" and ckpt.is_file():
+        return ckpt
+    ckpt_dir, step = split_checkpoint_path(ckpt)
+    if not ckpt_dir.is_dir():
+        return None
     mgr = CheckpointManager(ckpt_dir)
     step = step if step is not None else mgr.latest_step()
-    if step is None:
+    if step is None or not (mgr.dir / str(step)).is_dir():
         return None
-    if not (mgr.dir / str(step) / "params.pt").exists():
-        raise NotImplementedError(
-            f"{mgr.dir / str(step)} is not a checkpoint of this port (restoring the "
-            f"JAX package's orbax checkpoints is not ported yet); convert its params "
-            f"tree and pass params=")
-    print(f"[ckpt] restored step {step} from {mgr.dir} (ema={use_ema})")
-    return params_only_tree(mgr.restore(step), use_ema=use_ema)
+    return mgr.dir / str(step)
+
+
+def checkpoint_state_dict(cfg: Dict, model: AVDiffusionModel,
+                          use_ema: bool = False) -> Optional[Dict[str, torch.Tensor]]:
+    """The state_dict that paths.ckpt_path names for `model`, with the EMA
+    weights when `use_ema`; None (and a warning, as the JAX package gives)
+    when it names nothing that exists or a directory without checkpoints."""
+    paths = cfg.get("paths", {}) or {}
+    ckpt = paths.get("ckpt_path") or paths.get("ckpt")
+    if not ckpt:
+        print("[info] no ckpt_path in config; sampling with random weights.")
+        return None
+    where = checkpoint_location(ckpt)
+    if where is None:
+        print(f"[warn] checkpoint path {ckpt} has no checkpoints; "
+              f"sampling with random weights.")
+        return None
+    if where.is_file():
+        step, sd = reference_state_dict(where, cfg, model, use_ema)
+        print(f"[ckpt] reference checkpoint {where} (step {step}, ema={use_ema})")
+        return sd
+    fmt = checkpoint_format(where)
+    print(f"[ckpt] restored step {where.name} from {where.parent} ({fmt}, ema={use_ema})")
+    if fmt == "port":
+        return params_only_tree(CheckpointManager(where.parent).restore(int(where.name)),
+                                use_ema=use_ema)
+    if fmt == "jax":
+        return jax_params_only(read_orbax_step(where), use_ema=use_ema)
+    raise FileNotFoundError(f"{where} holds neither the port's params.pt nor an orbax "
+                            f"checkpoint (default/_METADATA)")
 
 
 def build_components(cfg: Dict, params: Optional[Mapping] = None,
                      device: Device = "cuda", use_ema: bool = False) -> AVDiffusionModel:
     """The model in eval mode on `device`: weights from a JAX params tree
-    when given, else from the port's checkpoint at paths.ckpt_path (with the
-    EMA shadow swapped in when `use_ema`), else a random init seeded by
-    cfg['seed'].
+    when given, else from the checkpoint paths.ckpt_path names
+    (``checkpoint_state_dict``; the EMA weights swapped in when `use_ema`),
+    else a random init seeded by cfg['seed'].
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions
@@ -81,12 +113,10 @@ def build_components(cfg: Dict, params: Optional[Mapping] = None,
     if params is not None:
         load_jax_params(model, params)
         return model.to(dev).eval()
-    ckpt_dir, step = _checkpoint_dir(cfg)
-    state = _restore(ckpt_dir, step, use_ema) if ckpt_dir and ckpt_dir.exists() else None
+    state = checkpoint_state_dict(cfg, model, use_ema)
     if state is not None:
         model.load_state_dict(state, strict=True)
     else:
-        print("[info] no checkpoint; sampling with random weights.")
         init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))
     return model.to(dev).eval()
 
@@ -181,6 +211,25 @@ def sample_one_direction(
         return {"video": frames_u8 if batched else frames_u8[0], "fps": fps}
 
 
+def add_checkpoint_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--ckpt", type=str, default=None,
+                    help="checkpoint directory (port or orbax), <dir>/<step>, <dir>/latest, or "
+                         "a reference .pt file (sets paths.ckpt_path)")
+    ap.add_argument("--ema", action="store_true", help="sample with the EMA weights")
+
+
+def config_with_checkpoint(cfg: Dict, ckpt: Optional[str]) -> Dict:
+    """`cfg` with paths.ckpt_path set to `ckpt` when given. A checkpoint
+    named here must exist: FileNotFoundError when it names nothing that
+    ``checkpoint_location`` finds (no silent random weights)."""
+    if ckpt:
+        if checkpoint_location(ckpt) is None:
+            raise FileNotFoundError(f"--ckpt {ckpt}: no reference .pt file and no "
+                                    f"checkpoint step directory there")
+        cfg = dict(cfg, paths={**(cfg.get("paths") or {}), "ckpt_path": ckpt})
+    return cfg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="One-shot DDIM sampling with CFG (V->A or A->V).")
     ap.add_argument("--config", type=str, nargs="+", required=True,
@@ -194,13 +243,14 @@ def main(argv=None):
     ap.add_argument("--out-audio", type=Path, default=None, help="Output wav path (for V->A)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu; cuda raises when absent")
+    add_checkpoint_args(ap)
     args = ap.parse_args(argv)
 
     from ..media.audio_io import read_wav, write_wav
     from ..media.video_io import load_frames_dir, write_frames
 
-    cfg = load_config(*args.config)
-    model = build_components(cfg, device=args.device)
+    cfg = config_with_checkpoint(load_config(*args.config), args.ckpt)
+    model = build_components(cfg, device=args.device, use_ema=args.ema)
     prompt_modality = cfg.get("sampling", {}).get("prompt_modality", "video")
     if prompt_modality == "video":
         if args.frames is None:

@@ -1,6 +1,7 @@
-"""Frame-directory I/O for the sampling CLI (a copy of the JAX package's
-``media/video_io.py`` frame helpers): read sorted frames from a directory as
-RGB uint8, write frames + optional mp4 (OpenCV, imported at use)."""
+"""Frame-directory and video-file I/O (a copy of the JAX package's
+``media/video_io.py``): read sorted frames from a directory as RGB uint8,
+write frames + optional mp4, decode a video file (OpenCV, imported at
+use)."""
 
 from __future__ import annotations
 
@@ -63,3 +64,27 @@ def write_frames(
         for t in range(T):
             vw.write(cv2.cvtColor(frames_uint8[t], cv2.COLOR_RGB2BGR))
         vw.release()
+
+
+def read_video_file(path, size_hw: Optional[Tuple[int, int]] = None) -> Tuple[np.ndarray, float]:
+    """Decode a video file -> ([T, H, W, 3] uint8 RGB, src_fps)."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    if not cap.isOpened():
+        raise RuntimeError(f"Failed to open video {path}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        if size_hw is not None and frame.shape[:2] != tuple(size_hw):
+            H, W = size_hw
+            frame = cv2.resize(frame, (W, H), interpolation=cv2.INTER_LINEAR)
+        frames.append(frame)
+    cap.release()
+    if not frames:
+        raise RuntimeError(f"No frames decoded from {path}")
+    return np.stack(frames, axis=0), float(fps)

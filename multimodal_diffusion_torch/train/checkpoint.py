@@ -13,8 +13,11 @@ renamed into place only once complete. Saves are synchronous: ``save``'s
 ``wait`` and the ``wait()`` / ``close()`` methods exist so that callers read
 as the JAX package's (whose orbax saves run in the background), and a config
 with ``training.ckpt_async: true`` gets the same files, written before
-``save`` returns. Restoring the JAX package's orbax checkpoints is not
-ported.
+``save`` returns.
+
+The JAX package's orbax step directories (``<dir>/<step>/default/``) are
+read by ``train/orbax_reader.py``; ``restore_jax_state`` loads such a tree
+into a TrainState and ``checkpoint_format`` tells the two kinds apart.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..utils.convert import jax_params_to_state_dict
+from .orbax_reader import is_orbax_step
 
 
 class CheckpointManager:
@@ -113,3 +119,104 @@ def params_only_tree(tree: Dict[str, Any], use_ema: bool = False) -> Dict[str, t
     if use_ema and tree.get("ema_core"):
         params.update(tree["ema_core"])
     return params
+
+
+def checkpoint_format(step_dir) -> Optional[str]:
+    """'port' for a step directory of this port (``params.pt``), 'jax' for
+    one of the JAX package's orbax checkpoints (``default/_METADATA``),
+    None otherwise."""
+    step_dir = Path(step_dir)
+    if (step_dir / "params.pt").is_file():
+        return "port"
+    if is_orbax_step(step_dir):
+        return "jax"
+    return None
+
+
+def jax_ema_state_dict(params: Dict[str, Any], ema: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The EMA shadow of a JAX tree keyed by the port's parameter names. Its
+    own keys tell the scope, as the JAX package's ``params_only_tree`` reads
+    them: the keys of ``params`` (scope all) or the core's subtree (scope
+    core)."""
+    return jax_params_to_state_dict(ema if set(ema) == set(params) else {"core": ema})
+
+
+def jax_params_only(tree: Dict[str, Any], use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """The inference state_dict of a JAX checkpoint tree, with the EMA
+    weights swapped in when `use_ema` (``params_only_tree`` of the JAX
+    package)."""
+    params = jax_params_to_state_dict(tree["params"])
+    if use_ema and tree.get("ema_core"):
+        params.update(jax_ema_state_dict(tree["params"], tree["ema_core"]))
+    return params
+
+
+def _nodes_with(tree, keys) -> list:
+    """The dict nodes of `tree` (dicts and lists) that hold all of `keys`."""
+    found = []
+    if isinstance(tree, dict):
+        if keys <= set(tree):
+            found.append(tree)
+        for v in tree.values():
+            found += _nodes_with(v, keys)
+    elif isinstance(tree, list):
+        for v in tree:
+            found += _nodes_with(v, keys)
+    return found
+
+
+@torch.no_grad()
+def restore_jax_state(state, tree: Dict[str, Any]) -> None:
+    """Load the JAX package's training state (``state_to_tree`` of its
+    ``train/checkpoint.py``, as ``orbax_reader.read_orbax_step`` returns it)
+    into a TrainState built by create_trainer for the same config, in place.
+
+    * params: through ``jax_params_to_state_dict``, strictly;
+    * EMA: keyed by the port's parameter names, scope core or all as the
+      tree's keys say; it must be the scope the config gives;
+    * optimizer: the optax state of the JAX ``make_optimizer`` --
+      ``chain(clip_by_global_norm, adamw)`` (fp32 moments) or
+      ``chain(clip, chain(scale_by_adam_mv, add_decayed_weights,
+      scale_by_learning_rate))`` (bf16 moments), wrapped in
+      ``optax.MultiSteps`` when ``data.grad_accum_steps > 1``:
+      ``ScaleByAdamState.count``, ``mu`` and ``nu`` (each in its stored dtype)
+      become AdamW's count and moments, ``MultiStepsState.mini_step`` and
+      ``acc_grads`` its accumulator;
+    * step.
+
+    The JAX tree holds no generator state (its rng is not saved), so the
+    trainer's generator stays as create_trainer seeded it from the config:
+    the run continues as a fresh run from the seed would draw, not as the
+    JAX run would have."""
+    opt = state.optimizer
+    adam = _nodes_with(tree["opt_state"], {"count", "mu", "nu"})
+    multi = _nodes_with(tree["opt_state"], {"mini_step", "gradient_step", "inner_opt_state",
+                                            "acc_grads"})
+    if len(adam) != 1 or len(multi) > 1:
+        raise ValueError(f"not the JAX package's optimizer state: {len(adam)} Adam states, "
+                         f"{len(multi)} MultiSteps states")
+    if bool(multi) != (opt.acc is not None):
+        raise ValueError("data.grad_accum_steps differs between the config and the checkpoint "
+                         f"(optax.MultiSteps {'present' if multi else 'absent'})")
+    mu, nu = (jax_params_to_state_dict(adam[0][k], dtype=None) for k in ("mu", "nu"))
+    for name, moments in (("mu", mu), ("nu", nu)):
+        dtypes = {t.dtype for t in moments.values()}
+        if set(moments) != set(opt.names) or dtypes != {opt.mv_dtype}:
+            raise ValueError(f"the checkpoint's {name} ({sorted(map(str, dtypes))}) does not "
+                             f"fit the optimizer (mv_dtype {opt.mv_dtype})")
+    params = jax_params_to_state_dict(tree["params"])
+    ema = {}
+    if state.ema:
+        if not tree.get("ema_core"):
+            raise ValueError("the config keeps an EMA; the checkpoint has none")
+        ema = jax_ema_state_dict(tree["params"], tree["ema_core"])
+        if set(ema) != set(state.ema):
+            raise ValueError("training.ema.scope differs between the config and the checkpoint")
+    state.model.load_state_dict(params, strict=True)
+    opt.load_state_dict({
+        "count": int(adam[0]["count"]), "mu": mu, "nu": nu,
+        "mini_step": int(multi[0]["mini_step"]) if multi else 0,
+        "acc": jax_params_to_state_dict(multi[0]["acc_grads"]) if multi else None})
+    for k, v in state.ema.items():
+        v.copy_(ema[k])
+    state.step = int(tree["step"])

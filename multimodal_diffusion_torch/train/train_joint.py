@@ -15,7 +15,9 @@ gathered there, otherwise a threaded loader streams collated batches that
 ``training.ckpt_every`` steps and once at the end; ``--resume`` continues
 from the latest one (params, AdamW moments, EMA, step and the trainer's
 generator; the data stream and the target schedule start again from the
-seed). SIGTERM or SIGINT ends the run after the step in flight, with a
+seed). The latest step may also be one the JAX package wrote (orbax): it
+restores through ``checkpoint.restore_jax_state``, and the generator starts
+from the seed, as that tree holds no generator state. SIGTERM or SIGINT ends the run after the step in flight, with a
 checkpoint.
 
 Runs on CUDA unless ``--device cpu``, and raises without a card. One process
@@ -31,8 +33,10 @@ import signal
 from ..datasets.collate import collate_batch
 from ..datasets.loader import DataLoader
 from ..utils.io import load_config, resolve_device
-from .checkpoint import CheckpointManager, restore_state, state_to_tree
+from .checkpoint import (CheckpointManager, checkpoint_format, restore_jax_state, restore_state,
+                         state_to_tree)
 from .metrics import MetricWriter
+from .orbax_reader import read_orbax_step
 from .trainer import create_trainer, run_training, run_validation
 
 
@@ -122,8 +126,13 @@ def main(argv=None):
     writer = MetricWriter(cfg["paths"]["log_dir"])
     ckpt = CheckpointManager(cfg["paths"]["ckpt_dir"])
 
-    if args.resume and ckpt.latest_step() is not None:
-        restore_state(bundle.state, ckpt.restore())
+    latest = ckpt.latest_step() if args.resume else None
+    if latest is not None:
+        # the port's own step directory, or one the JAX package wrote
+        if checkpoint_format(ckpt.dir / str(latest)) == "jax":
+            restore_jax_state(bundle.state, read_orbax_step(ckpt.dir / str(latest)))
+        else:
+            restore_state(bundle.state, ckpt.restore())
         print(f"[resume] restored step {bundle.state.step} from {ckpt.dir}", flush=True)
 
     def log_fn(step, metrics):

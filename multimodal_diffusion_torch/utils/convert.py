@@ -1,7 +1,7 @@
-"""Carry weights from the JAX package to the port.
+"""Carry weights between the JAX package and the port.
 
 ``jax_params_to_state_dict`` takes a JAX ``params`` tree (nested mapping of
-numpy-convertible arrays) and returns the port's ``state_dict``:
+numpy-convertible arrays or tensors) and returns the port's ``state_dict``:
 
   * Dense kernel  [in, out]              -> weight [out, in]
   * Conv1d kernel [k, in, out]           -> weight [out, in, k]
@@ -17,13 +17,20 @@ need no rule of their own: ``vid_vae/patch_embed`` and ``unpatch_proj`` are
 Dense kernels, ``patch_norm`` a norm, ``adapt_m/proj`` an adapter like its
 siblings, ``embed/pos_m`` three position tables, and the modality table
 simply has a third row.
+
+``state_dict_to_jax_params`` is the exact inverse (bit for bit): the port's
+keys back to flax's names (a norm is ``GroupNorm`` inside the VideoVAE's
+``enc``/``dec`` blocks, ``LayerNorm`` where it has a bias, else ``RMSNorm``;
+``fc{k}`` is flax's ``Dense_{k-1}`` except in an MLP, where flax names it
+``fc{k}`` too; a 1-D ``weight`` is a ``scale``, any other a ``kernel``), and
+each kernel back to the JAX layout.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,29 +70,101 @@ def torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def _torch_layout(leaf: str, a: np.ndarray) -> np.ndarray:
+# JAX kernel axes -> torch weight axes, by kernel rank: Dense [in, out],
+# Conv1d [k, in, out], Conv3d [kt, kh, kw, in, out]
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 5: (4, 3, 0, 1, 2)}
+_TO_JAX = {2: (1, 0), 3: (2, 1, 0), 5: (2, 3, 4, 1, 0)}
+
+
+def _permute(leaf: str, t: torch.Tensor, perms: Dict[int, Tuple[int, ...]]) -> torch.Tensor:
     if leaf != "kernel":
-        return a
-    if a.ndim == 2:  # Dense [in, out]
-        return a.T
-    if a.ndim == 3:  # Conv1d [k, in, out]
-        return a.transpose(2, 1, 0)
-    if a.ndim == 5:  # Conv3d [kt, kh, kw, in, out]
-        return a.transpose(4, 3, 0, 1, 2)
-    raise ValueError(f"no torch layout for a {a.ndim}-D kernel")
+        return t
+    if t.ndim not in perms:
+        raise ValueError(f"no layout for a {t.ndim}-D kernel")
+    return t.permute(perms[t.ndim])
 
 
-def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert every leaf of a JAX params tree; each leaf maps to exactly one
-    key (a collision raises)."""
+def _tensor(value) -> torch.Tensor:
+    """A CPU tensor of a leaf in its own dtype (numpy bfloat16 included)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    a = np.asarray(value)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def jax_params_to_state_dict(params: Mapping, dtype: Optional[torch.dtype] = torch.float32
+                             ) -> Dict[str, torch.Tensor]:
+    """Convert every leaf of a JAX params tree (or of a tree of the same
+    layout, such as Adam moments) to `dtype` (None: each leaf's own); each
+    leaf maps to exactly one key (a collision raises)."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
         key = torch_key(path)
         if key in out:
             raise ValueError(f"two JAX leaves map to {key!r} (second: {'/'.join(path)})")
-        a = _torch_layout(path[-1], np.asarray(value, dtype=np.float32))
-        out[key] = torch.from_numpy(np.array(a, order="C"))  # own, writable copy
+        t = _tensor(value)
+        t = _permute(path[-1], t if dtype is None else t.to(dtype), _TO_TORCH)
+        out[key] = t.contiguous().clone()  # own, writable copy
     return out
+
+
+def _norm_kind(sd: Mapping[str, torch.Tensor], module: str, parent: str) -> str:
+    if re.fullmatch(r"(enc|dec)\.\d+", parent) and module.startswith("vid_vae."):
+        return "GroupNorm"
+    return "LayerNorm" if f"{module}.bias" in sd else "RMSNorm"
+
+
+def _jax_path(key: str, sd: Mapping[str, torch.Tensor]) -> Tuple[str, ...]:
+    """The port's state_dict key -> the JAX parameter path (the inverse of
+    torch_key; `sd` tells a LayerNorm from an RMSNorm by its bias, and a
+    norm's 1-D ``weight`` (flax ``scale``) from a kernel by its rank)."""
+    parts = key.split(".")
+    path, i = [], 0
+    while i < len(parts) - 1:
+        name = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) - 1 else None
+        if name in ("blocks", "enc", "dec", "shared") and nxt is not None and nxt.isdigit():
+            path.append(f"{'block' if name == 'blocks' else name}_{nxt}")
+            i += 2
+            continue
+        if m := re.fullmatch(r"norm(\d*)", name):
+            module = ".".join(parts[:i + 1])
+            parent = ".".join(parts[max(0, i - 2):i])
+            path.append(f"{_norm_kind(sd, module, parent)}_{int(m[1]) - 1 if m[1] else 0}")
+        elif name == "conv":
+            path.append("Conv_0")
+        elif (m := re.fullmatch(r"fc(\d+)", name)) and (i == 0 or parts[i - 1] != "mlp"):
+            path.append(f"Dense_{int(m[1]) - 1}")
+        else:
+            path.append(name)
+        i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        leaf = "kernel" if sd[key].ndim >= 2 else "scale"
+    return tuple(path) + (leaf,)
+
+
+def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """The port's state_dict -> the JAX package's nested params tree of
+    numpy arrays (bfloat16 tensors become uint16 words); the exact inverse
+    of jax_params_to_state_dict."""
+    tree: Dict[str, object] = {}
+    for key, t in sd.items():
+        path = _jax_path(key, sd)
+        if torch_key(path) != key:
+            raise ValueError(f"{key!r} has no JAX path ({'/'.join(path)} maps back to "
+                             f"{torch_key(path)!r})")
+        a = _permute(path[-1], t.detach().cpu(), _TO_JAX).contiguous()
+        a = a.view(torch.uint16) if a.dtype == torch.bfloat16 else a
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        if path[-1] in node:
+            raise ValueError(f"two keys map to {'/'.join(path)}")
+        node[path[-1]] = a.numpy().copy()
+    return tree
 
 
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:

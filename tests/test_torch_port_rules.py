@@ -1,4 +1,5 @@
-"""Rules the port keeps: it imports nothing of JAX or the JAX package, the
+"""Rules the port keeps: it imports nothing of JAX or the JAX package (nor
+orbax, tensorstore or zstandard, which it reads checkpoints without), the
 weight converter consumes every JAX leaf exactly once, its built-in configs
 are the merged mvp+v2a and mvp+specificity8 YAMLs, its entry points refuse to
 run on the CPU unless asked to, and options of later slices raise."""
@@ -20,7 +21,8 @@ from multimodal_diffusion_torch.utils.convert import jax_params_to_state_dict, t
 from multimodal_diffusion_tpu.utils.io import load_config
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "multimodal_diffusion_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+             "multimodal_diffusion_tpu"}
 PORT_FILES = sorted((REPO / "multimodal_diffusion_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 
@@ -128,8 +130,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
 def test_unported_options_raise(monkeypatch):
     """Exactly these still raise NotImplementedError: parallel.context,
     parallel.pipe, parallel.model > 1, parallel.remat_core, quant: int8, the
-    variational VAE, train_joint under WORLD_SIZE > 1 and restoring an orbax
-    checkpoint."""
+    variational VAE and train_joint under WORLD_SIZE > 1."""
     from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
     from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
 
@@ -150,10 +151,24 @@ def test_unported_options_raise(monkeypatch):
         VideoVAE(VideoVAEConfig(variational=True))
 
 
-def test_orbax_checkpoint_restore_raises(tmp_path):
-    (tmp_path / "7").mkdir()  # a step directory without the port's params.pt
-    cfg = {**shrunk_cfg(), "paths": {"ckpt_path": str(tmp_path / "latest")}}
-    with pytest.raises(NotImplementedError, match="orbax"):
+def test_orbax_checkpoint_restores(tmp_path):
+    """A step directory the JAX package's CheckpointManager wrote, found
+    through <dir>/latest as before, now restores (the committed fixture,
+    copied as step 7); a step directory of neither kind still raises."""
+    import shutil
+
+    from _torch_orbax import FIXTURE, FIXTURE_STEPS
+    from multimodal_diffusion_torch.train.checkpoint import jax_params_only
+    from multimodal_diffusion_torch.train.orbax_reader import read_orbax_step
+
+    shutil.copytree(FIXTURE / "ckpt" / str(FIXTURE_STEPS), tmp_path / "7")
+    cfg = {**tio.load_config(FIXTURE / "config.yaml"),
+           "paths": {"ckpt_path": str(tmp_path / "latest")}}
+    model = sample_clip.build_components(cfg, device="cpu")
+    want = jax_params_only(read_orbax_step(tmp_path / "7"))
+    assert all(torch.equal(model.state_dict()[k], v) for k, v in want.items())
+    (tmp_path / "8").mkdir()  # neither params.pt nor default/_METADATA
+    with pytest.raises(FileNotFoundError, match="orbax"):
         sample_clip.build_components(cfg, device="cpu")
 
 
