@@ -24,7 +24,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                guided sampler's backward has the train step's strides); all
                three, untimed, at the 16-row edges N = 15, 16, 17, 145, masked
                and unmasked; the forward at N = 128, 133, 192 (what the ragged
-               edge costs);
+               edge costs); then, bf16 and timed, the text families' shapes
+               under their masks (77 text keys with each prompt's pads, the
+               target keys, the masked seq_multiple tail): the forward at the
+               t2i sampler's [16, 4, 1152, 128], the t2a sampler's
+               [16, 6, 397, 64] and the text encoder's [16, 4, 77, 64], the
+               forward and the backward pair at the t2i train step's
+               [32, 4, 1152, 128] and [32, 4, 77, 64];
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -101,11 +107,33 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                windows, two batches of 8 (the second padded), exactly
                2 x 800 forward launches, 176,000 stitched samples, finite, in
                [-1, 1]; the stream's wall seconds beside one spec8_v2a batch.
+ 14. t2i_512 — configs/t2i_512.yaml at full width (512x512, 4x64x64
+               latents, text d=256 4 layers, core d=512 16 layers 4 heads of
+               128, 77 + 1024 tokens padded to 1152; bf16) with N(0, 0.02)
+               weights written as a checkpoint and restored through the CLI's
+               weight path: B=8, 50 ddim steps, guidance 5.0, a real negative
+               prompt, exactly 50 x 16 + 2 x 4 = 808 forward launches a batch
+               and uint8 [8, 512, 512, 3] images; a warm-up and 3 timed
+               batches; images that differ with an empty negative prompt and
+               under dpmpp_2m; one denoise with and without the kernel within
+               2e-2; then the sample_t2i CLI in this process (8 PNGs);
+ 15. t2i_train — make_t2i_train_step at the config's width and B=32 (halved
+               while it does not fit), the config's AdamW: 2 warm-up steps
+               (no move at LR 0, a move after), 4 timed steps of exactly 20
+               launches of each kernel (16 core + 4 text layers), finite
+               losses; one full-width gradient of 8 samples with and without
+               the kernels within 3e-2, reaching the VAE and text encoders
+               and not the decoder;
+ 16. t2a     — Text2AudioConfig() in bf16 (d=384, 6 layers, 6 heads of 64,
+               77 + 320 tokens), N(0, 0.02) weights: B=8, 50 ddim steps,
+               exactly 50 x 6 + 2 x 4 = 308 forward launches a batch, finite
+               mels [8, 1, 80, 256], one clip through Griffin-Lim.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
 `python -m multimodal_diffusion_torch.tools.profile_train` (each takes
-`--config specificity8`).
+`--config specificity8`), of one t2i batch
+`python -m multimodal_diffusion_torch.tools.profile_t2i`.
 """
 
 from __future__ import annotations
@@ -192,6 +220,28 @@ FIXTURE_REL_TOL = 1e-4
 CLI_CLIPS, CLI_CLIPS_PER_SHARD, CLI_RESIDENT_CLIPS = 512, 128, 384
 CLI_NO_VIDEO, CLI_NO_AUDIO = (17, 200, 401), (5, 130, 333, 470)
 CLI_STEPS, CLI_RESUME_STEPS, CLI_STREAMED_STEPS = 8, 12, 6
+# the text families: configs/t2i_512.yaml sampled at B=8 and trained at its
+# batch of 32 (halved while it does not fit), Text2AudioConfig() at B=8
+T2I_BATCH, T2I_STEPS = 8, 50
+T2I_TRAIN_WARMUP, T2I_TRAIN_STEPS = 2, 4
+T2A_BATCH, T2A_STEPS = 8, 50
+T2A_PROMPTS = ["a dog barking", "rain on a tin roof", "a church bell", "footsteps on gravel",
+               "a violin melody", "wind through trees", "a door slamming", "birdsong at dawn"]
+# (name, [B, H, N, Dh], target tokens, backward too): the t2i sampler's core
+# (77 text + 1024 image keys, 51 tail keys masked; prompts and negative
+# prompts stacked), the t2i train step's core and text encoder, the t2a
+# sampler's core (77 + 320 mel keys) and a sampling batch's text encoder
+TEXT_FAMILY_CASES = [
+    ("t2i_sample", (16, 4, 1152, 128), 1024, False),
+    ("t2i_train", (32, 4, 1152, 128), 1024, True),
+    ("text_encoder_train", (32, 4, 77, 64), 0, True),
+    ("t2a_sample", (16, 6, 397, 64), 320, False),
+    ("text_encoder", (16, 4, 77, 64), 0, False),
+]
+# t2i denoise with and without the kernel, bf16, 16 core layers as the
+# flagship's: the flagship's 2e-2; the full-width gradient: its 3e-2
+T2I_DENOISE_REL_TOL = 2e-2
+T2I_GRAD_REL_TOL = 3e-2
 
 
 def emit(obj) -> None:
@@ -1408,6 +1458,351 @@ def spec8_stream_phase(fa):
     return launches
 
 
+def text_family_valid(prompts, N: int, n_target: int):
+    """[len(prompts), N] key validity of a text family's attention: each
+    prompt's 77 text positions (BOS, bytes and EOS valid, pads masked), then
+    n_target valid target tokens, then the masked tail the core pads to
+    seq_multiple."""
+    import torch
+
+    from multimodal_diffusion_torch.models.text_encoder import PAD_ID, tokenize_text
+
+    ids = torch.from_numpy(tokenize_text(prompts, 77))
+    valid = torch.zeros((len(prompts), N), dtype=torch.bool)
+    valid[:, :77] = ids != PAD_ID
+    valid[:, 77:77 + n_target] = True
+    return valid
+
+
+def text_family_kernel_cases(fa, cycles_per_s):
+    """bf16, the kernels at the text families' shapes and masks, each against
+    its plain version, timed beside it, SDPA and the bound: the t2i sampler's
+    core (cond and negative prompts stacked, 1024 image keys, 51 tail keys
+    masked), the t2i train step's core and text encoder (the backward pair
+    too), the t2a sampler's core and a sampling batch's text encoder."""
+    import torch
+
+    from multimodal_diffusion_torch.tools.profile_t2i import NEGATIVE, PROMPTS
+
+    dev = torch.device("cuda")
+    results = {}
+    for name, shape, n_target, backward in TEXT_FAMILY_CASES:
+        B, H, N, Dh = shape
+        half = B // 2
+        prompts = (PROMPTS * B)[:B] if backward else \
+            (PROMPTS * B)[:half] + [NEGATIVE] * (B - half)
+        valid = text_family_valid(prompts, N, n_target).to(dev)
+        n_valid = [int(x) for x in valid.sum(dim=1).tolist()]
+        g = torch.Generator(device=dev).manual_seed(80 + N)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        out, lse, rec = forward_case(fa, name, q, k, v, valid, n_valid, cycles_per_s)
+        results[name] = {"fwd": rec}
+        if backward:
+            dout = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            results[name].update(backward_case(fa, name, q, k, v, valid, out, lse, dout,
+                                               n_valid, cycles_per_s))
+        del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    return results
+
+
+def t2i_denoise_check(model, batch: int) -> float:
+    """One full-width t2i denoise of the CFG-doubled batch (the prompts and
+    the negative prompt, noisy latents, mixed timesteps) with and without
+    the kernel: max |diff| / max |dense|."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.models.latent_text2image import encode_prompts
+    from multimodal_diffusion_torch.models.text_encoder import tokenize_text
+    from multimodal_diffusion_torch.tools.profile_t2i import NEGATIVE, PROMPTS
+
+    c = model.cfg
+    rng = np.random.default_rng(0)
+    ids = tokenize_text((PROMPTS * batch)[:batch], c.text.max_len)
+    neg = tokenize_text([NEGATIVE] * batch, c.text.max_len)
+    z = torch.from_numpy(rng.normal(size=(2 * batch,) + c.latent_shape).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, c.steps, 2 * batch))
+    with torch.inference_mode():
+        text2, pad2 = encode_prompts(model, ids, neg)
+        a, b = (model.denoise(z.cuda(), t.cuda(), text2, pad2, use_kernel=k)
+                for k in (True, False))
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def t2i_512_phase(fa, work_dir):
+    """configs/t2i_512.yaml at full width through sample_images and the CLI's
+    weight path (a port checkpoint of N(0, 0.02) weights under
+    paths.ckpt_dir, restored by sample_t2i.build_t2i), then the CLI itself."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_diffusion_torch.infer import sample_t2i
+    from multimodal_diffusion_torch.tools.profile_t2i import (CONFIG, NEGATIVE, PROMPTS,
+                                                              t2i_workload)
+
+    ckpt_dir = work_dir / "t2i_ckpt"
+    t0 = time.perf_counter()
+    cfg, model, run = t2i_workload(T2I_BATCH, T2I_STEPS, ckpt_dir=ckpt_dir)
+    setup_s = time.perf_counter() - t0
+    c = model.cfg
+    n_core, n_text = c.core.n_layers, c.text.core.n_layers
+    # 50 steps x 16 core layers, and the text encoder's 4 layers once for the
+    # prompts and once for the negative prompts (two calls, as the JAX sampler)
+    expected = T2I_STEPS * n_core + 2 * n_text
+    want = {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    shape = (T2I_BATCH, c.image_size, c.image_size, 3)
+    launches = {"flash_fwd": 0}
+
+    def batch(**kw):
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        imgs = run(**kw)
+        wall = time.perf_counter() - t0
+        got = launch_counts(fa)
+        if got != want:
+            raise AssertionError(f"t2i batch {kw}: launches {got}, expected {want}")
+        if imgs.shape != shape or imgs.dtype != np.uint8:
+            raise AssertionError(f"t2i images {imgs.shape} {imgs.dtype}, expected {shape} uint8")
+        launches["flash_fwd"] += got["flash_fwd"]
+        return imgs, wall
+
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s = batch()
+    times = [batch()[1] for _ in range(3)]
+    median_s = statistics.median(times)
+    empty_neg, _ = batch(negative=None)
+    if np.array_equal(first, empty_neg):
+        raise AssertionError("the negative prompt did not change the images")
+    dpm, dpm_s = batch(sampler="dpmpp_2m")
+    if np.array_equal(first, dpm):
+        raise AssertionError("dpmpp_2m gave the ddim images")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rel = t2i_denoise_check(model, T2I_BATCH)
+    if not rel <= T2I_DENOISE_REL_TOL:
+        raise AssertionError(f"t2i denoise kernel vs dense: {rel} > {T2I_DENOISE_REL_TOL}")
+    del model
+    torch.cuda.empty_cache()
+
+    # the CLI in this process, on the same checkpoint and seed
+    overlay = work_dir / "t2i_overlay.yaml"
+    overlay.write_text(f"paths:\n  ckpt_dir: {json.dumps(str(ckpt_dir))}\n")
+    reset_launch_counts(fa)
+    t0 = time.perf_counter()
+    pngs = sample_t2i.main(["--config", str(CONFIG), str(overlay), "--prompt", *PROMPTS,
+                            "--negative", *[NEGATIVE] * T2I_BATCH, "--seed", "1",
+                            "--out-dir", str(work_dir / "t2i_png")])
+    cli_s = time.perf_counter() - t0
+    got = launch_counts(fa)
+    if got != want:
+        raise AssertionError(f"t2i CLI launches {got}, expected {want}")
+    launches["flash_fwd"] += got["flash_fwd"]
+    cli_imgs = []
+    for p in pngs:
+        with Image.open(p) as im:
+            cli_imgs.append(np.asarray(im.convert("RGB")))
+    if len(cli_imgs) != T2I_BATCH or any(im.shape != shape[1:] for im in cli_imgs):
+        raise AssertionError(f"the CLI wrote {len(cli_imgs)} images")
+    emit({"phase": "t2i_512", "config": "configs/t2i_512.yaml", "batch": T2I_BATCH,
+          "steps": T2I_STEPS, "guidance": float(cfg["sampling"]["guidance_scale"]),
+          "negative": NEGATIVE, "compute_dtype": "bfloat16",
+          "core": {"d_model": c.core.d_model, "n_layers": n_core, "n_heads": c.core.n_heads,
+                   "tokens": 77 + c.n_img_tokens, "seq_multiple": c.core.seq_multiple},
+          "setup_s": setup_s, "first_batch_s": first_s, "batch_s": times,
+          "median_batch_s": median_s, "images_per_s": T2I_BATCH / median_s,
+          "dpmpp_2m_batch_s": dpm_s, "cli_s": cli_s,
+          "cli_images_equal_first_batch": bool(np.array_equal(np.stack(cli_imgs), first)),
+          "flash_fwd_per_batch": expected, "denoise_kernel_vs_dense_rel_err": rel,
+          "rel_tol": T2I_DENOISE_REL_TOL, "images_mean": float(first.mean()),
+          "peak_mem_gb": peak_gb})
+    return launches
+
+
+def t2i_train_phase(fa):
+    """make_t2i_train_step at configs/t2i_512.yaml's width and batch (halved
+    while it does not fit), the config's AdamW (warmup-cosine, clip 1.0),
+    seeded random init."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_t2i import build_t2i
+    from multimodal_diffusion_torch.models import latent_text2image as TL
+    from multimodal_diffusion_torch.models.text_encoder import tokenize_text
+    from multimodal_diffusion_torch.tools.profile_t2i import CONFIG, PROMPTS
+    from multimodal_diffusion_torch.train.trainer import global_norm, make_optimizer
+    from multimodal_diffusion_torch.utils.io import load_config
+
+    cfg = load_config(CONFIG)
+    cfg["paths"]["ckpt_dir"] = str(REPO / "runs" / "chip_smoke_no_t2i_checkpoint")
+    model = build_t2i(cfg, device="cuda").train()
+    c = model.cfg
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    B = int(cfg["data"]["batch_size"])
+    rng = np.random.default_rng(0)
+    while True:
+        try:
+            images = torch.from_numpy(rng.uniform(-1, 1, (B, 3, c.image_size, c.image_size))
+                                      .astype(np.float32)).cuda()
+            ids = tokenize_text((PROMPTS * B)[:B], c.text.max_len)
+            opt = make_optimizer(cfg, named)
+            step = TL.make_t2i_train_step(model, opt, float(cfg["training"]["cfg_drop_prob"]),
+                                          torch.Generator(device="cuda").manual_seed(0))
+            before = [p.detach().clone() for p in params]
+            t0 = time.perf_counter()
+            losses = [float(step(images, ids))]  # LR(0) = 0 in warmup
+            break
+        except torch.cuda.OutOfMemoryError:
+            images = opt = step = before = None
+            torch.cuda.empty_cache()
+            B //= 2
+            if B < 1:
+                raise
+    if any(not torch.equal(p, b) for p, b in zip(params, before)):
+        raise AssertionError("a t2i parameter moved in the first step, at LR 0")
+    for _ in range(T2I_TRAIN_WARMUP - 1):
+        losses.append(float(step(images, ids)))
+    warmup_s = time.perf_counter() - t0
+    if all(torch.equal(p, b) for p, b in zip(params, before)):
+        raise AssertionError("no t2i parameter moved after a step with a nonzero LR")
+    del before
+    torch.cuda.reset_peak_memory_stats()
+    step_s, per_step = [], []
+    for _ in range(T2I_TRAIN_STEPS):
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        losses.append(float(step(images, ids)))
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(launch_counts(fa))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # 16 core layers and the text encoder's 4, each kernel once a layer
+    expected = c.core.n_layers + c.text.core.n_layers
+    if any(n != expected for counts in per_step for n in counts.values()):
+        raise AssertionError(f"t2i train launches {per_step}, expected {expected} of each")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite t2i losses {losses}")
+
+    # one full-width gradient with the kernels and with dense attention, on
+    # 8 samples of the batch and fixed draws
+    n = min(B, 8)
+    draws = TL.draw_t2i_randomness(torch.Generator(device="cuda").manual_seed(7), c, n)
+    abar = torch.as_tensor(TL.alpha_bar(c), device="cuda")
+    ids_n = torch.as_tensor(ids[:n], device="cuda")
+    grads = {}
+    for use_kernel in (True, False):
+        loss = TL.t2i_loss(model, images[:n], ids_n, draws, abar, use_kernel)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        grads[use_kernel] = {k: g for (k, _), g in zip(named, gs) if g is not None}
+    qkv = [k for k in grads[False] if k.endswith("attn.qkv.weight")]
+    qkv_rel = max(float((grads[True][k] - grads[False][k]).abs().max())
+                  / float(grads[False][k].abs().max()) for k in qkv)
+    norms = {k: float(global_norm(list(g.values()))) for k, g in grads.items()}
+    norm_rel = abs(norms[True] - norms[False]) / norms[False]
+    reached = {part: any(k.startswith(part) for k in grads[True])
+               for part in ("vae.enc_", "text_encoder.", "vae.dec")}
+    if len(qkv) != expected or max(qkv_rel, norm_rel) > T2I_GRAD_REL_TOL:
+        raise AssertionError(f"t2i grads with the kernels vs dense: qkv {qkv_rel}, norm "
+                             f"{norm_rel} (tol {T2I_GRAD_REL_TOL}, {len(qkv)} qkv grads)")
+    if reached != {"vae.enc_": True, "text_encoder.": True, "vae.dec": False}:
+        raise AssertionError(f"t2i grads reach {reached}")
+    emit({"phase": "t2i_train", "config": "configs/t2i_512.yaml", "batch": B,
+          "config_batch": int(cfg["data"]["batch_size"]), "compute_dtype": "bfloat16",
+          "warmup_steps": T2I_TRAIN_WARMUP, "warmup_s": warmup_s, "step_s": step_s,
+          "median_step_s": statistics.median(step_s),
+          "train_images_per_s": B / statistics.median(step_s), "losses": losses,
+          "launches_per_step": per_step[0], "launches_expected": expected,
+          "grad_check": {"batch": n, "qkv_weight_rel_err": qkv_rel,
+                         "grad_norm_rel_err": norm_rel, "grad_norm_kernel": norms[True],
+                         "grad_norm_dense": norms[False], "rel_tol": T2I_GRAD_REL_TOL,
+                         "reached": reached},
+          "peak_mem_gb": peak_gb})
+    return {k: sum(counts[k] for counts in per_step) for k in per_step[0]}
+
+
+def t2a_phase(fa):
+    """Text2AudioConfig() in bf16 with N(0, 0.02) weights: B=8, 50 DDIM
+    steps with batched CFG (guidance 3.0, empty negative prompts), and one
+    clip through Griffin-Lim."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.models.text2audio_mel import (Text2AudioConfig,
+                                                                  Text2AudioModel,
+                                                                  make_t2a_sampler,
+                                                                  mel_to_waveform)
+    from multimodal_diffusion_torch.models.text_encoder import tokenize_text
+
+    bf16 = torch.bfloat16
+    base = Text2AudioConfig()
+    c = dataclasses.replace(
+        base, dtype=bf16, core=dataclasses.replace(base.core, dtype=bf16),
+        text=dataclasses.replace(base.text, dtype=bf16,
+                                 core=dataclasses.replace(base.text.core, dtype=bf16)))
+    model = Text2AudioModel(c)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    model = model.cuda().eval()
+    ids = tokenize_text(T2A_PROMPTS[:T2A_BATCH], c.text.max_len)
+    neg = tokenize_text([""] * T2A_BATCH, c.text.max_len)
+    sample = make_t2a_sampler(model, T2A_STEPS)
+    expected = T2A_STEPS * c.core.n_layers + 2 * c.text.core.n_layers
+    want = {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    times, launches = [], {"flash_fwd": 0}
+    for _ in range(3):
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        mel = sample(ids, neg, generator=torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = launch_counts(fa)
+        if got != want:
+            raise AssertionError(f"t2a launches {got}, expected {want}")
+        launches["flash_fwd"] += got["flash_fwd"]
+    mel = mel.float().cpu().numpy()
+    if mel.shape != (T2A_BATCH, 1, c.n_mels, c.frames) or not np.all(np.isfinite(mel)):
+        raise AssertionError(f"bad mels {mel.shape}")
+    t0 = time.perf_counter()
+    wav = mel_to_waveform(c, mel[0])
+    gl_s = time.perf_counter() - t0
+    if wav.ndim != 1 or len(wav) < (c.frames - 1) * c.hop or not np.all(np.isfinite(wav)):
+        raise AssertionError(f"bad Griffin-Lim waveform {wav.shape}")
+    emit({"phase": "t2a", "config": "Text2AudioConfig()", "batch": T2A_BATCH,
+          "steps": T2A_STEPS, "compute_dtype": "bfloat16", "tokens": 77 + c.n_tokens,
+          "first_batch_s": times[0], "batch_s": times[1:],
+          "median_batch_s": statistics.median(times[1:]),
+          "clips_per_s": T2A_BATCH / statistics.median(times[1:]),
+          "flash_fwd_per_batch": expected, "mel_shape": list(mel.shape),
+          "mel_abs_max": float(np.abs(mel).max()), "griffin_lim_s": gl_s,
+          "wav_samples": int(wav.shape[0]), "wav_abs_max": float(np.abs(wav).max())})
+    return launches
+
+
+def text_family_phases(fa):
+    """t2i_512, t2i_train and t2a, in a scratch directory under runs/
+    (deleted at the end): {phase: launches}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    (REPO / "runs").mkdir(exist_ok=True)
+    work_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_t2i_", dir=REPO / "runs"))
+    try:
+        by_path = {"t2i_512": t2i_512_phase(fa, work_dir)}
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    by_path["t2i_train"] = t2i_train_phase(fa)
+    torch.cuda.empty_cache()
+    by_path["t2a"] = t2a_phase(fa)
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -1439,6 +1834,7 @@ def main(argv=None) -> int:
           "backward_bf16_occupancy": fa.backward_occupancy()})
 
     cases = kernel_phase(fa)
+    text_cases = text_family_kernel_cases(fa, spin_cycles_per_s())
     by_path = {"v2a": {"flash_fwd": v2a_phase(fa)}}
     torch.cuda.empty_cache()
     by_path["train"] = train_phase(fa)
@@ -1454,6 +1850,8 @@ def main(argv=None) -> int:
     by_path["orbax_fixture"] = orbax_fixture_phase(fa)
     torch.cuda.empty_cache()
     by_path["spec8_stream"] = spec8_stream_phase(fa)
+    torch.cuda.empty_cache()
+    by_path.update(text_family_phases(fa))
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}
@@ -1462,7 +1860,8 @@ def main(argv=None) -> int:
     # ms, plain_ms, bound_ms and library_ms are the mvp shapes'; the flagship
     # shapes' stand beside them (the forward at the sampler's [16, 8, 421,
     # 128], the backward pair at the train step's and guided sampler's
-    # [8, 8, 421, 128])
+    # [8, 8, 421, 128]), and the text families' (the forward at the t2i and
+    # t2a samplers' cores, the backward pair at the t2i train step's core)
     mvp, flag = cases[("mvp", "bfloat16")], cases[("flagship_sample", "bfloat16")]
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -1475,7 +1874,11 @@ def main(argv=None) -> int:
         "flagship": {"shape": flag["shape"], "max_abs_err": flag["max_abs_err_out"],
                      "ms": flag["ms"], "plain_ms": flag["plain_ms"],
                      "bound_ms": flag["bound_ms"], "bound_by": flag["bound_by"],
-                     "library_ms": flag["library_ms"]}}]
+                     "library_ms": flag["library_ms"]},
+        **{name: {"shape": rec["shape"], "max_abs_err": rec["max_abs_err_out"],
+                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                  "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+           for name, rec in ((n, text_cases[n]["fwd"]) for n in ("t2i_sample", "t2a_sample"))}}]
     for kernel, line in (("dkdv", 205), ("dq", 276)):
         rec = cases[("mvp_train", "bfloat16", kernel)]
         flag = cases[("flagship", "bfloat16", kernel)]
@@ -1490,10 +1893,12 @@ def main(argv=None) -> int:
             "max_abs_err": max(rec["max_abs_err"].values()), "ms": rec["ms"],
             "plain_ms": rec["plain_pair_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_pair_ms"],
-            "flagship": {"shape": flag["shape"],
-                         "max_abs_err": max(flag["max_abs_err"].values()), "ms": flag["ms"],
-                         "plain_ms": flag["plain_pair_ms"], "bound_ms": flag["bound_ms"],
-                         "bound_by": flag["bound_by"], "library_ms": flag["library_pair_ms"]}})
+            **{where: {"shape": rec["shape"], "max_abs_err": max(rec["max_abs_err"].values()),
+                       "ms": rec["ms"], "plain_ms": rec["plain_pair_ms"],
+                       "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                       "library_ms": rec["library_pair_ms"]}
+               for where, rec in (("flagship", flag),
+                                  ("t2i_train", text_cases["t2i_train"][kernel]))}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

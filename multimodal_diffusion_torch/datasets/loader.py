@@ -228,7 +228,16 @@ class DataLoader:
                     break
                 yield item
         finally:
+            # a consumer that stops early must not leave the producer running
+            # (its collate draws from numpy's global generator) or blocked on
+            # a full queue: drain until it has finished its batch and exited
             stop.set()
+            while t.is_alive():
+                try:
+                    out_q.get(timeout=0.05)
+                except queue.Empty:
+                    pass
+            t.join()
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         """Infinite stream over repeated (re-shuffled) epochs."""

@@ -1,0 +1,105 @@
+"""Text -> image sampling with CFG + negative prompts (counterpart of the JAX
+``infer/sample_t2i.py``):
+
+    python -m multimodal_diffusion_torch.infer.sample_t2i \
+        --config configs/t2i_512.yaml --prompt "a red fox" \
+        [--negative "blurry"] [--steps 50] [--guidance 5.0] [--out-dir DIR] [--device cpu]
+
+Runs on CUDA unless ``--device cpu`` (raises when CUDA is asked for and
+absent). Weights come from the latest step under ``paths.ckpt_dir``: the
+port's own checkpoint (``train/checkpoint.py``) or the JAX package's orbax
+one (read by ``train/orbax_reader.py`` without orbax), told apart per step
+directory; with neither, it samples with seeded random weights and says so.
+Writes ``t2i_0000.png`` ... into ``--out-dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Dict, List, Optional, Union
+
+import torch
+
+from ..models.diffusion import init_weights
+from ..models.latent_text2image import Text2ImageConfig, Text2ImageModel, sample_images
+from ..train.checkpoint import CheckpointManager, checkpoint_format
+from ..train.orbax_reader import read_orbax_step
+from ..utils.convert import jax_params_to_state_dict
+from ..utils.io import compute_dtype_from_config, load_config, resolve_device
+from .sample_clip import checkpoint_location
+
+
+def t2i_state_dict(cfg: Dict) -> Optional[Dict[str, torch.Tensor]]:
+    """The params of the latest checkpoint under paths.ckpt_dir (either
+    format) as the port's state_dict, or None when there is none."""
+    ckpt_dir = (cfg.get("paths", {}) or {}).get("ckpt_dir")
+    where = checkpoint_location(ckpt_dir) if ckpt_dir else None
+    if where is None or where.is_file():
+        return None
+    fmt = checkpoint_format(where)
+    if fmt == "port":
+        sd = CheckpointManager(where.parent).restore(int(where.name))["params"]
+    elif fmt == "jax":
+        sd = jax_params_to_state_dict(read_orbax_step(where)["params"])
+    else:
+        raise FileNotFoundError(f"{where} holds neither the port's params.pt nor an orbax "
+                                f"checkpoint (default/_METADATA)")
+    print(f"[ckpt] restored step {where.name} from {where.parent} ({fmt})")
+    return sd
+
+
+def build_t2i(cfg: Dict, device: Union[str, torch.device] = "cuda") -> Text2ImageModel:
+    """The config's Text2ImageModel in eval mode on `device`, with the
+    weights of ``t2i_state_dict`` (strict), else a random init seeded by
+    cfg['seed']."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Text2ImageModel(Text2ImageConfig.from_config(
+        cfg, dtype=compute_dtype_from_config(cfg)))
+    sd = t2i_state_dict(cfg)
+    if sd is None:
+        print("[info] no checkpoint; sampling with random weights")
+        init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+    else:
+        model.load_state_dict(sd, strict=True)
+    return model.to(dev).eval()
+
+
+def main(argv=None) -> List[Path]:
+    ap = argparse.ArgumentParser(description="Text->image DDIM sampling w/ CFG")
+    ap.add_argument("--config", type=str, nargs="+", required=True)
+    ap.add_argument("--prompt", type=str, nargs="+", required=True)
+    ap.add_argument("--negative", type=str, nargs="*", default=None)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--guidance", type=float, default=None)
+    ap.add_argument("--out-dir", type=Path, default=Path("t2i_samples"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", type=str, default=None)
+    args = ap.parse_args(argv)
+    device = resolve_device("cpu" if (args.device or "").lower() == "cpu" else "cuda")
+
+    cfg = load_config(*args.config)
+    model = build_t2i(cfg, device)
+    steps = args.steps or int(cfg["diffusion"]["image"].get("sampler_steps", 50))
+    guidance = args.guidance if args.guidance is not None else float(
+        cfg.get("sampling", {}).get("guidance_scale", 5.0))
+    sampler = str(cfg.get("sampling", {}).get("sampler", "ddim"))
+    imgs = sample_images(model, args.prompt, negative=args.negative or None,
+                         sampler_steps=steps, guidance_scale=guidance,
+                         generator=torch.Generator(device=device).manual_seed(args.seed),
+                         sampler=sampler)
+
+    from PIL import Image
+
+    args.out_dir.mkdir(parents=True, exist_ok=True)
+    paths = [args.out_dir / f"t2i_{i:04d}.png" for i in range(len(imgs))]
+    for path, im in zip(paths, imgs):
+        Image.fromarray(im).save(path)
+    print(f"[ok] wrote {len(imgs)} images -> {args.out_dir}")
+    return paths
+
+
+if __name__ == "__main__":
+    main()

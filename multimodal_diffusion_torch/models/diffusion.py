@@ -41,6 +41,7 @@ from .adapters import (
 from .audio_codec import AudioCodec, AudioCodecConfig, Conv1d
 from .heads import MultiModalNoiseHead
 from .mmdit import MMDiT, MMDiTConfig
+from .vae_image2d import Conv2d
 from .vae_video3d import Conv3d, VideoVAE, VideoVAEConfig
 
 
@@ -410,9 +411,9 @@ class AVDiffusionModel(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init with the JAX package's initializer families:
     xavier-uniform Dense kernels (lecun-normal for the VideoVAE's patch
-    projections), lecun-normal 3-D convs, the codec's kaiming-uniform
-    (a=0.2) 1-D convs, N(0, 0.02) embedding tables, zero biases, unit norm
-    scales. Draws come from ``generator``, so a seed fixes
+    projections), lecun-normal 2-D and 3-D convs, the codec's kaiming-uniform
+    (a=0.2) 1-D convs, N(0, 0.02) embedding and position tables, zero
+    biases, unit norm scales. Draws come from ``generator``, so a seed fixes
     the weights (they are not the JAX package's draws)."""
     def lecun_normal_(w: torch.Tensor) -> None:
         # flax lecun_normal: truncated at 2 std, std corrected for the cut
@@ -426,7 +427,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             else:
                 nn.init.xavier_uniform_(mod.weight, generator=generator)
             nn.init.zeros_(mod.bias)
-        elif isinstance(mod, Conv3d):
+        elif isinstance(mod, (Conv2d, Conv3d)):
             lecun_normal_(mod.weight)
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, Conv1d):
@@ -435,5 +436,5 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.uniform_(mod.weight, -lim, lim, generator=generator)
             nn.init.zeros_(mod.bias)
     for name, p in model.named_parameters():
-        if name.endswith("table"):
+        if name.endswith(("table", "embedding")) or name.split(".")[-1] == "pos":
             nn.init.normal_(p, 0.0, 0.02, generator=generator)

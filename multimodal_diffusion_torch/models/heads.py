@@ -1,5 +1,8 @@
 """Epsilon-prediction heads (counterpart of the JAX ``models/heads.py``).
 
+NoisePredictionHead: (num_layers - 1) trunk blocks then an output Dense, for
+one modality (the text families).
+
 MultiModalNoiseHead: per-modality input projection -> shared trunk of
 (Dense -> LayerNorm(eps 1e-5) -> act -> Dropout) blocks -> per-modality
 output Dense (the joint model's one modality-specific layer, so no
@@ -45,6 +48,26 @@ class TrunkBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.drop(self.act(self.norm(self.dense(x))))
+
+
+class NoisePredictionHead(nn.Module):
+    """MLP eps-predictor [..., d_in] -> [..., output_dim]: num_layers - 1
+    trunk blocks (GELU, no dropout, as the text families build it) of width
+    hidden_dim (d_in when 0), then ``out``."""
+
+    def __init__(self, d_in: int, output_dim: int, hidden_dim: int = 0, num_layers: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = hidden_dim or d_in
+        n = max(0, num_layers - 1)
+        self.blocks = nn.ModuleList(
+            TrunkBlock(d_in if i == 0 else hidden, hidden, "gelu", dtype) for i in range(n))
+        self.out = Dense(hidden if n else d_in, output_dim, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x)
+        return self.out(x)
 
 
 class MultiModalNoiseHead(nn.Module):

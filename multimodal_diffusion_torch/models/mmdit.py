@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import mha_reference, multi_head_attention, padding_bias
+from ..ops.tokenize import pad_to_multiple
 from .adapters import Dense
 
 
@@ -252,9 +253,8 @@ class MMDiT(nn.Module):
             raise ValueError(f"expected width {cfg.d_model}, got {x.shape[-1]}")
         x = self.token_drop(x.to(cfg.dtype))
         B, N, _ = x.shape
-        pad_n = (-N) % max(1, cfg.seq_multiple)
+        x, pad_n = pad_to_multiple(x, max(1, cfg.seq_multiple), axis=1)
         if pad_n:
-            x = F.pad(x, (0, 0, 0, pad_n))
             if key_padding_mask is None:
                 key_padding_mask = torch.zeros((B, N), dtype=torch.bool, device=x.device)
             key_padding_mask = F.pad(key_padding_mask, (0, pad_n), value=True)

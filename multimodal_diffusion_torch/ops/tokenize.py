@@ -8,7 +8,7 @@ Token layout conventions:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +91,17 @@ def overlap_add_1d(windows: torch.Tensor, stride: int, length: Optional[int] = N
     norm = torch.zeros((L_out,), dtype=windows.dtype, device=windows.device)
     norm = norm.index_add(0, idx, win.repeat(N))
     return y / torch.clamp(norm, min=1e-8)
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int = -1,
+                    value: float = 0.0) -> Tuple[torch.Tensor, int]:
+    """Right-pad `axis` to a multiple of `multiple`; returns (padded, pad_amt)."""
+    axis = axis % x.ndim
+    pad_amt = (multiple - x.shape[axis] % multiple) % multiple
+    if pad_amt == 0:
+        return x, 0
+    pads = [0, 0] * (x.ndim - 1 - axis) + [0, pad_amt]  # F.pad lists the last dim first
+    return F.pad(x, pads, value=value), pad_amt
 
 
 def audio_tokens_from_latent(z_a: torch.Tensor, length: int, stride: int) -> torch.Tensor:

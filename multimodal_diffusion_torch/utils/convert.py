@@ -5,14 +5,19 @@ numpy-convertible arrays or tensors) and returns the port's ``state_dict``:
 
   * Dense kernel  [in, out]              -> weight [out, in]
   * Conv1d kernel [k, in, out]           -> weight [out, in, k]
+  * Conv2d kernel [kh, kw, in, out]      -> weight [out, in, kh, kw]
   * Conv3d kernel [kt, kh, kw, in, out]  -> weight [out, in, kt, kh, kw]
   * norm ``scale`` -> ``weight``; biases and embedding tables unchanged.
 
-Module paths follow the JAX tree, except flax's automatic names
-(``RMSNorm_0`` ... inside an MMDiT block become ``norm1``/``norm2``, other
-norms ``norm``, ``Conv_0`` -> ``conv``, ``Dense_i`` -> ``fc{i+1}``) and
-numbered siblings, which become list entries (``block_3`` -> ``blocks.3``,
-``enc_0`` -> ``enc.0``, ``shared_1`` -> ``shared.1``). The flagship's leaves
+Module paths follow the JAX tree, except flax's automatic names and
+numbered siblings. Automatic names: ``RMSNorm_0`` ... inside an MMDiT block
+(a ``block_i`` of any ``core``: the denoiser's and the text encoder's) become
+``norm1``/``norm2``, and inside an ImageVAE ResBlock (``enc_0_0``,
+``dec_mid`` ...) ``GroupNorm_i`` and ``Conv_i`` become ``norm{i+1}`` and
+``conv{i+1}``; other norms become ``norm``, ``Conv_0`` ``conv``, ``Dense_i``
+``fc{i+1}`` and ``Embed_0`` ``token_embed``. Numbered siblings become list
+entries (``block_3`` -> ``blocks.3``, ``enc_0`` -> ``enc.0``, ``shared_1`` ->
+``shared.1``). The flagship's leaves
 need no rule of their own: ``vid_vae/patch_embed`` and ``unpatch_proj`` are
 Dense kernels, ``patch_norm`` a norm, ``adapt_m/proj`` an adapter like its
 siblings, ``embed/pos_m`` three position tables, and the modality table
@@ -20,7 +25,8 @@ simply has a third row.
 
 ``state_dict_to_jax_params`` is the exact inverse (bit for bit): the port's
 keys back to flax's names (a norm is ``GroupNorm`` inside the VideoVAE's
-``enc``/``dec`` blocks, ``LayerNorm`` where it has a bias, else ``RMSNorm``;
+``enc``/``dec`` blocks and the ImageVAE's ResBlocks, ``LayerNorm`` where it
+has a bias, else ``RMSNorm``;
 ``fc{k}`` is flax's ``Dense_{k-1}`` except in an MLP, where flax names it
 ``fc{k}`` too; a 1-D ``weight`` is a ``scale``, any other a ``kernel``), and
 each kernel back to the JAX layout.
@@ -39,6 +45,8 @@ from torch import nn
 _NORM = re.compile(r"(RMSNorm|LayerNorm|GroupNorm)_(\d+)")
 _DENSE = re.compile(r"Dense_(\d+)")
 _LISTED = re.compile(r"(block|enc|dec|shared)_(\d+)")
+_RESBLOCK = re.compile(r"(enc|dec)_(\d+_\d+|mid)")  # an ImageVAE ResBlock2D
+_CONV = re.compile(r"Conv_(\d+)")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -54,11 +62,17 @@ def torch_key(path: Tuple[str, ...]) -> str:
     parts = []
     for i, name in enumerate(path[:-1]):
         parent = path[i - 1] if i else ""
+        in_core_block = (i >= 2 and path[i - 2] == "core"
+                         and re.fullmatch(r"block_\d+", parent))
+        numbered = in_core_block or _RESBLOCK.fullmatch(parent)
         if m := _NORM.fullmatch(name):
-            in_core_block = path[0] == "core" and re.fullmatch(r"block_\d+", parent)
-            parts.append(f"norm{int(m[2]) + 1}" if in_core_block else "norm")
+            parts.append(f"norm{int(m[2]) + 1}" if numbered else "norm")
+        elif (m := _CONV.fullmatch(name)) and numbered:
+            parts.append(f"conv{int(m[1]) + 1}")
         elif name == "Conv_0":
             parts.append("conv")
+        elif name == "Embed_0":
+            parts.append("token_embed")
         elif m := _DENSE.fullmatch(name):
             parts.append(f"fc{int(m[1]) + 1}")
         elif m := _LISTED.fullmatch(name):
@@ -71,9 +85,9 @@ def torch_key(path: Tuple[str, ...]) -> str:
 
 
 # JAX kernel axes -> torch weight axes, by kernel rank: Dense [in, out],
-# Conv1d [k, in, out], Conv3d [kt, kh, kw, in, out]
-_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 5: (4, 3, 0, 1, 2)}
-_TO_JAX = {2: (1, 0), 3: (2, 1, 0), 5: (2, 3, 4, 1, 0)}
+# Conv1d [k, in, out], Conv2d [kh, kw, in, out], Conv3d [kt, kh, kw, in, out]
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_JAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def _permute(leaf: str, t: torch.Tensor, perms: Dict[int, Tuple[int, ...]]) -> torch.Tensor:
@@ -113,6 +127,8 @@ def jax_params_to_state_dict(params: Mapping, dtype: Optional[torch.dtype] = tor
 def _norm_kind(sd: Mapping[str, torch.Tensor], module: str, parent: str) -> str:
     if re.fullmatch(r"(enc|dec)\.\d+", parent) and module.startswith("vid_vae."):
         return "GroupNorm"
+    if _RESBLOCK.fullmatch(parent.split(".")[-1]):
+        return "GroupNorm"
     return "LayerNorm" if f"{module}.bias" in sd else "RMSNorm"
 
 
@@ -133,8 +149,10 @@ def _jax_path(key: str, sd: Mapping[str, torch.Tensor]) -> Tuple[str, ...]:
             module = ".".join(parts[:i + 1])
             parent = ".".join(parts[max(0, i - 2):i])
             path.append(f"{_norm_kind(sd, module, parent)}_{int(m[1]) - 1 if m[1] else 0}")
-        elif name == "conv":
-            path.append("Conv_0")
+        elif m := re.fullmatch(r"conv(\d*)", name):
+            path.append(f"Conv_{int(m[1]) - 1 if m[1] else 0}")
+        elif name == "token_embed":
+            path.append("Embed_0")
         elif (m := re.fullmatch(r"fc(\d+)", name)) and (i == 0 or parts[i - 1] != "mlp"):
             path.append(f"Dense_{int(m[1]) - 1}")
         else:

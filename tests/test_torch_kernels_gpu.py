@@ -487,3 +487,83 @@ def test_device_resident_upload_in_chunks(cuda, tmp_path, device_preprocess):
         for k in b:
             assert torch.equal(a[k].cpu(), b[k]), k
     assert copy_to_device.batches == copies
+
+
+def _text_family_valid(dev, B, n_text, n_target, n_tail, seed):
+    """[B, n_text + n_target + n_tail] key validity of the text families'
+    denoiser: each row's prompt length of BOS + bytes + EOS (2 to n_text),
+    pads after it, every target token valid, the seq_multiple tail masked."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(2, n_text + 1, (B,), generator=g)
+    text = torch.arange(n_text)[None, :] < lengths[:, None]
+    rest = torch.cat([torch.ones((B, n_target), dtype=torch.bool),
+                      torch.zeros((B, n_tail), dtype=torch.bool)], dim=1)
+    return torch.cat([text, rest], dim=1).to(dev).contiguous()
+
+
+# (shape, text keys, target keys, masked tail): the t2i-512 sampler's core
+# (77 + 1024, padded to 1152) and its train step's, the t2a core (77 + 320),
+# the text encoder
+TEXT_FAMILY_CASES = [((16, 4, 1152, 128), 77, 1024, 51), ((32, 4, 1152, 128), 77, 1024, 51),
+                     ((16, 6, 397, 64), 77, 320, 0), ((16, 4, 77, 64), 77, 0, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TEXT_FAMILY_CASES, ids=lambda c: "x".join(map(str, c[0])))
+def test_flash_kernels_at_the_text_family_shapes(cuda, case):
+    """bf16, the forward and the backward pair under the text families' masks
+    against their plain versions (the tolerances above)."""
+    shape, n_text, n_target, n_tail = case
+    q, k, v, _ = _inputs(cuda, shape, torch.bfloat16, 0, seed=30)
+    valid = _text_family_valid(cuda, shape[0], n_text, n_target, n_tail, seed=31)
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v, valid)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    dout = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(32),
+                       device=cuda).to(torch.bfloat16)
+    grads = t_fa.flash_backward(q, k, v, out, lse, dout, valid)
+    refs = t_fa.flash_backward_reference(q, k, v, out, lse, dout, valid)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert _rel_err(g, r) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.gpu
+def test_text_families_denoise_through_the_kernel(cuda):
+    """A narrow Text2ImageModel (heads of 32) on the card: denoise with the
+    kernel launches it once per core layer and agrees with dense attention
+    (bf16, 1.5e-2 of the magnitude); the text encoder launches it per layer."""
+    from multimodal_diffusion_torch.models.diffusion import init_weights
+    from multimodal_diffusion_torch.models.latent_text2image import (Text2ImageConfig,
+                                                                     Text2ImageModel)
+    from multimodal_diffusion_torch.models.mmdit import MMDiTConfig
+    from multimodal_diffusion_torch.models.text_encoder import (TextEncoderConfig,
+                                                                tokenize_text)
+    from multimodal_diffusion_torch.models.vae_image2d import ImageVAEConfig
+
+    dt = torch.bfloat16
+    c = Text2ImageConfig(
+        image_size=64, patch=2, width=64, dtype=dt,
+        vae=ImageVAEConfig(lat_ch=4, down=8, base=16, max_ch=32, dtype=dt),
+        text=TextEncoderConfig(width=64, max_len=77, dtype=dt,
+                               core=MMDiTConfig(d_model=64, n_layers=2, n_heads=2,
+                                                dropout=0.0, dtype=dt)),
+        core=MMDiTConfig(d_model=64, n_layers=3, n_heads=2, dropout=0.0, seq_multiple=128,
+                         dtype=dt))
+    model = Text2ImageModel(c)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    ids = torch.from_numpy(tokenize_text(["a red fox", ""], 77)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn((2, 4, 8, 8), generator=g, device=cuda)
+    t = torch.tensor([10, 900], device=cuda)
+    with torch.inference_mode():
+        before = t_fa.flash_forward.launches
+        text, _ = model.encode_text(ids)
+        assert t_fa.flash_forward.launches - before == 2
+        pad = ids == 256
+        a = model.denoise(z, t, text, pad, use_kernel=True)
+        assert t_fa.flash_forward.launches - before == 5
+        b = model.denoise(z, t, text, pad, use_kernel=False)
+    assert a.shape == (2, 4, 8, 8)
+    assert float((a.float() - b.float()).abs().max()) <= 1.5e-2 * float(b.float().abs().max())

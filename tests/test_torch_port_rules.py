@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_model_and_params, shrunk_cfg, shrunk_flagship_cfg
-from multimodal_diffusion_torch.infer import sample_clip
+from multimodal_diffusion_torch.infer import sample_clip, sample_t2i
 from multimodal_diffusion_torch.models.diffusion import AVDiffusionConfig, AVDiffusionModel
 from multimodal_diffusion_torch.train import train_joint
 from multimodal_diffusion_torch.train.trainer import create_trainer
@@ -75,6 +75,14 @@ def test_converter_consumes_every_leaf_once(make_cfg):
     (("vid_vae", "unpatch_proj", "kernel"), "vid_vae.unpatch_proj.weight"),
     (("adapt_m", "proj", "kernel"), "adapt_m.proj.weight"),
     (("embed", "pos_m", "h_table"), "embed.pos_m.h_table"),
+    (("text_encoder", "core", "block_0", "RMSNorm_1", "scale"),
+     "text_encoder.core.blocks.0.norm2.weight"),
+    (("text_encoder", "core", "RMSNorm_0", "scale"), "text_encoder.core.norm.weight"),
+    (("text_encoder", "Embed_0", "embedding"), "text_encoder.token_embed.embedding"),
+    (("vae", "enc_0_0", "GroupNorm_1", "bias"), "vae.enc_0_0.norm2.bias"),
+    (("vae", "dec_mid", "Conv_2", "kernel"), "vae.dec_mid.conv3.weight"),
+    (("vae", "enc_down_1", "kernel"), "vae.enc_down_1.weight"),
+    (("head", "block_0", "LayerNorm_0", "scale"), "head.blocks.0.norm.weight"),
 ])
 def test_flax_auto_names(path, key):
     assert torch_key(path) == key
@@ -125,6 +133,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_joint.main(["--config", str(REPO / "configs" / "mvp.yaml"),
                           str(REPO / "configs" / "specificity8.yaml")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sample_t2i.main(["--config", str(REPO / "configs" / "t2i_512.yaml"),
+                         "--prompt", "a red fox"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sample_t2i.build_t2i(load_config(REPO / "configs" / "t2i_512.yaml"))
 
 
 def test_unported_options_raise(monkeypatch):
