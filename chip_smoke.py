@@ -128,6 +128,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                77 + 320 tokens), N(0, 0.02) weights: B=8, 50 ddim steps,
                exactly 50 x 6 + 2 x 4 = 308 forward launches a batch, finite
                mels [8, 1, 80, 256], one clip through Griffin-Lim.
+ 17. serve_spec8 — the serving runner (serve/runner.py InferenceRunner) on
+               configs/mvp.yaml + configs/specificity8.yaml with paths
+               emptied (the seeded init), 50 sampler steps, bf16 serving
+               weights, max_batch 8: a manifest of 11 v2a requests (48 frames
+               of 128x128 as frame directories), 5 a2v requests (3 s wavs),
+               one 11 s stream_v2a request (9 windows) and one request whose
+               frames are missing. Every good request ok and the bad one
+               failing at load; wavs of 48,000 samples, finite, in [-1, 1];
+               48 uint8 frames; a stitched stream of 176,000 samples; exactly
+               800 forward launches per device batch; the most padded v2a
+               batch bit-equal to sample_one_direction on the same padded
+               batch; two requests through watch on an inbox, each with its
+               result file; no thread left after close. Requests/s, clips/s,
+               each batch's latency and queue waits.
+ 18. int8    — the W8A8 core: int8_linear on the card against its CPU path on
+               the same bf16 input at the flagship's and t2i's four hot
+               projection shapes (integers, scales and outputs bit-equal on
+               256 rows; a 5-row product padded to 17 rows), the int8
+               product, the quantize pass and int8_linear timed against bf16
+               F.linear with their bounds at the card's int8 and bf16 rates;
+               one flagship v2a batch under model.core.quant int8 with bf16
+               weights (800 forward launches, finite, in range) and on its
+               weights denoise_tokens int8 vs unquantized within 5e-2 (the
+               JAX bound) and not equal; the t2i serving row (t2i_512 width,
+               int8, dpmpp_2m at 12 steps, B=8, bf16 weights: a warm-up and 3
+               timed batches of exactly 12 x 16 + 2 x 4 = 200 forward
+               launches, uint8 [8, 512, 512, 3]) beside t2i_512's bf16
+               ddim@50 row.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -242,6 +270,31 @@ TEXT_FAMILY_CASES = [
 # flagship's: the flagship's 2e-2; the full-width gradient: its 3e-2
 T2I_DENOISE_REL_TOL = 2e-2
 T2I_GRAD_REL_TOL = 3e-2
+# serving: the runner at flagship width (50 sampler steps, as the other
+# flagship phases) on a manifest of SERVE_V2A clip requests, SERVE_A2V 3 s
+# wavs, one 11 s stream (9 windows) and one request whose frames are missing;
+# then SERVE_WATCH requests through an inbox
+SERVE_V2A, SERVE_A2V, SERVE_WATCH, SERVE_MAX_BATCH = 11, 5, 2, 8
+# int8 W8A8: the four hot projections' [M, K] x [K, N] at the flagship
+# sampler's M = 16 x 421 rows (CFG-doubled B = 8) and the t2i sampler's
+# 16 x 1152; the card's int8_linear must equal its CPU path on the same bf16
+# input, bit for bit, on the first INT8_CPU_ROWS rows (every row has its own
+# scale, so rows are independent; the CPU's int32 matmul of all rows would
+# take minutes)
+INT8_CASES = [
+    ("flagship_qkv", 6736, 1024, 3072), ("flagship_out", 6736, 1024, 1024),
+    ("flagship_fc1", 6736, 1024, 4096), ("flagship_fc2", 6736, 4096, 1024),
+    ("t2i_qkv", 18432, 512, 1536), ("t2i_out", 18432, 512, 512),
+    ("t2i_fc1", 18432, 512, 2048), ("t2i_fc2", 18432, 2048, 512),
+]
+INT8_CPU_ROWS = 256
+# H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12
+# int8 vs the unquantized model on the same weights: the JAX package's bound
+# (tests/test_quant.py), relative Frobenius norm of the difference
+INT8_REL_TOL = 5e-2
+# the JAX bench.py --serving row: t2i-512, dpmpp_2m at 12 steps, int8, B = 8
+T2I_SERVE_BATCH, T2I_SERVE_STEPS = 8, 12
 
 
 def emit(obj) -> None:
@@ -795,6 +848,28 @@ def check_wav(wav, cfg, what):
                              f"{np.all(np.isfinite(wav))}, max |x| {np.abs(wav).max()}")
 
 
+def spec8_denoise(model, **kw):
+    """One flagship denoise_tokens of the sampler's CFG-doubled batch (B = 8
+    conditional + 8 null rows, mouth tokens) on seeded inputs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    B2 = 2 * V2A_CLIPS
+    mgrid = model.mouth_grid(48)
+    n_mouth = mgrid[0] * mgrid[1] * mgrid[2]
+    tok_v = torch.from_numpy(rng.normal(size=(B2, 96, 256)).astype(np.float32)).cuda()
+    tok_a = torch.from_numpy(rng.normal(size=(B2, 37, 32)).astype(np.float32)).cuda()
+    tok_m = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(B2, n_mouth,
+                                                         model.cfg.token_dim_mouth))
+                             .astype(np.float32)).cuda()
+    t_v = torch.zeros(B2, dtype=torch.long, device="cuda")
+    t_a = torch.from_numpy(rng.integers(0, 1000, B2)).cuda()
+    keep = torch.cat([torch.ones(V2A_CLIPS), torch.zeros(V2A_CLIPS)]).cuda()
+    return model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None, tok_m=tok_m,
+                                keep_m=keep, mouth_grid=mgrid, **kw)
+
+
 def spec8_v2a_phases(fa):
     """Flagship sampling through build_components + sample_one_direction,
     unguided (phase spec8_v2a) and sync-guided (phase spec8_v2a_guided) on
@@ -828,23 +903,9 @@ def spec8_v2a_phases(fa):
     batch_s = statistics.median(times)
 
     # one full-width denoiser forward with mouth tokens, kernel vs dense (bf16)
-    rng = np.random.default_rng(0)
-    B2 = 2 * V2A_CLIPS
-    mc = model.cfg
-    mgrid = model.mouth_grid(48)
-    n_mouth = mgrid[0] * mgrid[1] * mgrid[2]
-    tok_v = torch.from_numpy(rng.normal(size=(B2, 96, 256)).astype(np.float32)).cuda()
-    tok_a = torch.from_numpy(rng.normal(size=(B2, 37, 32)).astype(np.float32)).cuda()
-    tok_m = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(B2, n_mouth, mc.token_dim_mouth))
-                             .astype(np.float32)).cuda()
-    t_v = torch.zeros(B2, dtype=torch.long, device="cuda")
-    t_a = torch.from_numpy(rng.integers(0, 1000, B2)).cuda()
-    keep = torch.cat([torch.ones(V2A_CLIPS), torch.zeros(V2A_CLIPS)]).cuda()
     with torch.inference_mode():
-        a, b = (model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None,
-                                     use_kernel=use_kernel, tok_m=tok_m, keep_m=keep,
-                                     mouth_grid=mgrid) for use_kernel in (True, False))
-    if a["h_m"].shape != (B2, 288, 1024):
+        a, b = (spec8_denoise(model, use_kernel=use_kernel) for use_kernel in (True, False))
+    if a["h_m"].shape != (2 * V2A_CLIPS, 288, 1024):
         raise AssertionError(f"h_m has shape {tuple(a['h_m'].shape)}")
     rel = {key: float((a[key].float() - b[key].float()).abs().max()
                       / b[key].float().abs().max()) for key in SPEC8_DENOISE_REL_TOL}
@@ -1617,7 +1678,8 @@ def t2i_512_phase(fa, work_dir):
           "flash_fwd_per_batch": expected, "denoise_kernel_vs_dense_rel_err": rel,
           "rel_tol": T2I_DENOISE_REL_TOL, "images_mean": float(first.mean()),
           "peak_mem_gb": peak_gb})
-    return launches
+    return launches, {"sampler": "ddim", "steps": T2I_STEPS, "batch": T2I_BATCH,
+                      "median_batch_s": median_s, "images_per_s": T2I_BATCH / median_s}
 
 
 def t2i_train_phase(fa):
@@ -1783,7 +1845,7 @@ def t2a_phase(fa):
 
 def text_family_phases(fa):
     """t2i_512, t2i_train and t2a, in a scratch directory under runs/
-    (deleted at the end): {phase: launches}."""
+    (deleted at the end): ({phase: launches}, the t2i_512 batch's row)."""
     import shutil
     import tempfile
 
@@ -1792,7 +1854,8 @@ def text_family_phases(fa):
     (REPO / "runs").mkdir(exist_ok=True)
     work_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_t2i_", dir=REPO / "runs"))
     try:
-        by_path = {"t2i_512": t2i_512_phase(fa, work_dir)}
+        t2i_launches, t2i_row = t2i_512_phase(fa, work_dir)
+        by_path = {"t2i_512": t2i_launches}
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1800,7 +1863,336 @@ def text_family_phases(fa):
     torch.cuda.empty_cache()
     by_path["t2a"] = t2a_phase(fa)
     torch.cuda.empty_cache()
-    return by_path
+    return by_path, t2i_row
+
+
+def serve_spec8_phase(fa):
+    """The serving runner (serve/runner.py) at flagship width: InferenceRunner
+    on configs/mvp.yaml + configs/specificity8.yaml with paths emptied (the
+    seeded init), bf16 serving weights, max_batch 8; a manifest, then two
+    requests through an inbox."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_clip import sample_one_direction
+    from multimodal_diffusion_torch.media.audio_io import read_wav, write_wav
+    from multimodal_diffusion_torch.media.video_io import load_frames_dir, write_frames
+    from multimodal_diffusion_torch.serve.runner import InferenceRunner, Request, pad_batch
+    from multimodal_diffusion_torch.utils.io import specificity8_config
+
+    cfg = specificity8_config()
+    cfg["paths"] = {}
+    for mod in ("audio", "video"):
+        cfg["diffusion"][mod]["sampler_steps"] = V2A_STEPS
+    fps, sr = int(cfg["video"]["fps"]), int(cfg["audio"]["sr"])
+    H, W = cfg["video"]["size"]
+    T = int(round(fps * float(cfg["data"]["clip_seconds"])))
+    L = int(round(sr * float(cfg["data"]["clip_seconds"])))
+    per_batch = V2A_STEPS * cfg["model"]["core"]["n_layers"]
+    (REPO / "runs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=REPO / "runs"))
+    runner = None
+    try:
+        t0 = time.perf_counter()
+        runner = InferenceRunner(cfg, bf16_params=True, max_batch=SERVE_MAX_BATCH,
+                                 device="cuda")
+        setup_s = time.perf_counter() - t0
+        dtypes = sorted({str(p.dtype) for p in runner.model.parameters()})
+        if dtypes != ["torch.bfloat16"]:
+            raise AssertionError(f"serving weights are {dtypes}, not bf16")
+        reqs = []
+        for i, f in enumerate(prompt_frames(SERVE_V2A, T, H, W, seed=17)):
+            write_frames(f, work / f"v2a_{i}")
+            reqs.append({"id": f"v2a_{i}", "direction": "v2a", "input": str(work / f"v2a_{i}"),
+                         "output": str(work / f"v2a_{i}.wav")})
+        rng = np.random.default_rng(18)
+        t = np.arange(L) / sr
+        for i in range(SERVE_A2V):
+            y = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 800) * t) + rng.normal(0, 0.05, L)
+            write_wav(work / f"a2v_{i}.wav", y.astype(np.float32), sr)
+            reqs.append({"id": f"a2v_{i}", "direction": "a2v", "input": str(work / f"a2v_{i}.wav"),
+                         "output": str(work / f"a2v_{i}")})
+        write_frames(prompt_frames(1, STREAM_FRAMES, H, W, seed=19)[0], work / "stream")
+        reqs.append({"id": "stream", "direction": "stream_v2a", "input": str(work / "stream"),
+                     "output": str(work / "stream.wav")})
+        reqs.append({"id": "bad", "direction": "v2a", "input": str(work / "missing"),
+                     "output": str(work / "bad.wav")})
+        (work / "requests.json").write_text(json.dumps({"requests": reqs}))
+        # one request first, so the manifest's batches run warm (cuDNN plans,
+        # the allocator); it counts as set-up
+        t0 = time.perf_counter()
+        warm = runner.submit(Request(id="warm", direction="v2a", input_path=reqs[0]["input"],
+                                     output_path=str(work / "warm.wav")))
+        if not warm.done.wait(timeout=600) or warm.error:
+            raise AssertionError(f"the warm-up request failed: {warm.error}")
+        warm_s = time.perf_counter() - t0
+        warm_batches = runner.scheduler.batches_run
+
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        done = runner.process_manifest(work / "requests.json")
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts(fa)
+        batches = runner.scheduler.batches_run - warm_batches
+        want = {"flash_fwd": batches * per_batch, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+        if launches != want:
+            raise AssertionError(f"serving launches {launches} in {batches} batches, "
+                                 f"expected {want}")
+        errors = {r.id: r.error for r in done if r.error}
+        if set(errors) != {"bad"} or not errors["bad"].startswith("load:"):
+            raise AssertionError(f"request errors {errors}: only 'bad' should fail, at load")
+        for i in range(SERVE_V2A):
+            wav, got_sr = read_wav(work / f"v2a_{i}.wav")
+            if wav.shape != (L,) or got_sr != sr or not np.all(np.isfinite(wav)) or \
+                    np.abs(wav).max() > 1:
+                raise AssertionError(f"served v2a_{i}: {wav.shape} at {got_sr} Hz")
+        for i in range(SERVE_A2V):
+            frames = load_frames_dir(work / f"a2v_{i}")
+            if frames.shape != (T, H, W, 3) or frames.dtype != np.uint8:
+                raise AssertionError(f"served a2v_{i}: frames {frames.shape} {frames.dtype}")
+        stream, _ = read_wav(work / "stream.wav")
+        if stream.shape != (176_000,) or not np.all(np.isfinite(stream)) or \
+                np.abs(stream).max() > 1:
+            raise AssertionError(f"served stream: {stream.shape}")
+        records = list(runner.scheduler.records)[warm_batches:]
+        by_seq = {it.seq: it for r in done for it in r.items}
+        n_clips = len(by_seq)
+        if n_clips != SERVE_V2A + SERVE_A2V + 9 or sum(len(r.seqs) for r in records) != n_clips:
+            raise AssertionError(f"{n_clips} work items served in {len(records)} batches")
+
+        # the most padded v2a batch again, straight through sample_one_direction
+        rec = min((r for r in records if r.key[0] == "v2a"), key=lambda r: len(r.seqs))
+        items = [by_seq[q] for q in rec.seqs]
+        direct = sample_one_direction(
+            cfg=cfg, model=runner.model, prompt_modality="video",
+            prompt_video=pad_batch([it.prompt for it in items], SERVE_MAX_BATCH),
+            device="cuda")["audio"]
+        if not all(np.array_equal(it.out, direct[i]) for i, it in enumerate(items)):
+            raise AssertionError("a served v2a output differs from sample_one_direction "
+                                 "on the same padded batch")
+
+        # two requests through an inbox, each answered by its result file
+        inbox = work / "inbox"
+        inbox.mkdir()
+        for i in range(SERVE_WATCH):
+            (inbox / f"req_{i}.json").write_text(json.dumps({
+                "id": f"w{i}", "direction": "v2a", "input": str(work / f"v2a_{i}"),
+                "output": str(work / f"watch_{i}.wav")}))
+        before = runner.scheduler.batches_run
+        stop = threading.Event()
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        watcher = threading.Thread(target=runner.watch, args=(inbox,),
+                                   kwargs={"poll_s": 0.05, "stop_event": stop}, daemon=True)
+        watcher.start()
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and \
+                len(list(inbox.glob("*.result.json"))) < SERVE_WATCH:
+            time.sleep(0.05)
+        watch_s = time.perf_counter() - t0
+        (inbox / "STOP").touch()
+        watcher.join(timeout=60)
+        stop.set()
+        if watcher.is_alive():
+            raise AssertionError("the watch loop did not stop on the STOP file")
+        results = [json.loads(p.read_text()) for p in sorted(inbox.glob("*.result.json"))]
+        if len(results) != SERVE_WATCH or not all(r["ok"] for r in results):
+            raise AssertionError(f"watch results {results}")
+        watch_batches = runner.scheduler.batches_run - before
+        got = launch_counts(fa)
+        if got["flash_fwd"] != watch_batches * per_batch:
+            raise AssertionError(f"watch launches {got} in {watch_batches} batches")
+        launches["flash_fwd"] += got["flash_fwd"]
+        for i in range(SERVE_WATCH):
+            wav, _ = read_wav(work / f"watch_{i}.wav")
+            if wav.shape != (L,) or not np.all(np.isfinite(wav)):
+                raise AssertionError(f"watch request {i}: {wav.shape}")
+        manifest_records = records
+    finally:
+        if runner is not None:
+            runner.close()
+        shutil.rmtree(work, ignore_errors=True)
+    if runner.scheduler._thread.is_alive() or runner._finalizers:
+        raise AssertionError("a serving thread outlived close()")
+    batch_s = [r.seconds for r in manifest_records]
+    emit({"phase": "serve_spec8", "config": "mvp+specificity8", "steps": V2A_STEPS,
+          "bf16_params": True, "max_batch": SERVE_MAX_BATCH, "setup_s": setup_s,
+          "warm_request_s": warm_s,
+          "requests": len(reqs), "requests_ok": len(reqs) - 1, "work_items": n_clips,
+          "manifest_s": wall_s, "requests_per_s": (len(reqs) - 1) / wall_s,
+          "clips_per_s": n_clips / wall_s,
+          "batches": [{"key": [r.key[0], list(r.key[1])], "items": len(r.seqs),
+                       "seconds": r.seconds, "queue_wait_s_max": max(r.queue_wait_s),
+                       "queue_wait_s_median": statistics.median(r.queue_wait_s)}
+                      for r in manifest_records],
+          "median_batch_s": statistics.median(batch_s),
+          "flash_fwd_per_batch": per_batch, "batches_run": batches,
+          "served_equals_direct_items": len(items), "watch_s": watch_s,
+          "watch_batches": watch_batches, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def int8_product_cases(cycles_per_s):
+    """int8_linear on the card against its CPU path (bit for bit) and timed
+    against bf16 F.linear at the hot projections' shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_diffusion_torch.ops import quant as Q
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out = []
+    for name, M, K, N in INT8_CASES:
+        x = torch.randn(M, K, device="cuda", generator=gen).to(bf16)
+        w = (torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5).to(bf16)
+        b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(bf16)
+        a8, s_a = Q.quantize_rowwise(x)
+        qw = Q.quantize_weight(w, bf16)
+        y32 = Q.int8_matmul(a8, qw[0])
+        y = Q.int8_linear(x, w, b, bf16, qw)
+        short = Q.int8_matmul(a8[:5], qw[0])  # padded to 17 rows inside
+        torch.cuda.synchronize()
+        rows = slice(0, INT8_CPU_ROWS)
+        xc, wc, bc = x[rows].cpu(), w.cpu(), b.cpu()
+        ca8, cs_a = Q.quantize_rowwise(xc)
+        cqw = Q.quantize_weight(wc, bf16)
+        pairs = {"a8": (a8[rows], ca8), "s_a": (s_a[rows], cs_a), "w8": (qw[0], cqw[0]),
+                 "s_w": (qw[1], cqw[1]), "int32": (y32[rows], Q.int8_matmul(ca8, cqw[0])),
+                 "out": (y[rows], Q.int8_linear(xc, wc, bc, bf16, cqw)),
+                 "short_int32": (short, y32[:5].cpu())}
+        differ = [k for k, (g, c) in pairs.items() if not torch.equal(g.cpu(), c)]
+        if differ:
+            raise AssertionError(f"int8 {name}: the card differs from the CPU path in {differ}")
+        ref = F.linear(x, w, b).float()
+        rel = float((y.float() - ref).norm() / ref.norm())
+        if not rel < INT8_REL_TOL:
+            raise AssertionError(f"int8 {name}: {rel} from bf16 F.linear")
+        ms = {"quantize_ms": cuda_median_ms(lambda: Q.quantize_rowwise(x), cycles_per_s),
+              "int_mm_ms": cuda_median_ms(lambda: Q.int8_matmul(a8, qw[0]), cycles_per_s),
+              "int8_linear_ms": cuda_median_ms(lambda: Q.int8_linear(x, w, b, bf16, qw),
+                                               cycles_per_s),
+              "bf16_linear_ms": cuda_median_ms(lambda: F.linear(x, w, b), cycles_per_s)}
+        ops = 2.0 * M * K * N
+        t_mm = ((M * K + N * K + 4 * M * N) / HBM_BYTES_PER_S, ops / PEAK_INT8_OPS)
+        t_lin = ((2 * M * K + N * K + 6 * N + 2 * M * N) / HBM_BYTES_PER_S, ops / PEAK_INT8_OPS)
+        t_bf = ((2 * M * K + 2 * N * K + 2 * N + 2 * M * N) / HBM_BYTES_PER_S,
+                ops / PEAK_FLOPS["bfloat16"])
+        bound = {"quantize_bound_ms": (3 * M * K + 4 * M) / HBM_BYTES_PER_S * 1e3}
+        for key, (tb, to) in (("int_mm", t_mm), ("int8_linear", t_lin), ("bf16_linear", t_bf)):
+            bound[f"{key}_bound_ms"] = max(tb, to) * 1e3
+            bound[f"{key}_bound_by"] = "bytes" if tb >= to else "operations"
+        out.append({"name": name, "shape_mkn": [M, K, N], "bit_equal_rows": INT8_CPU_ROWS,
+                    "rel_err_vs_bf16_linear": rel, **ms, **bound})
+        del x, w, b, a8, s_a, qw, y32, y, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_phases(fa, t2i_bf16):
+    """The W8A8 core on the card: the products (int8_product_cases), one
+    flagship v2a batch under model.core.quant int8 (what configs/int8.yaml
+    sets) with bf16 serving weights and its denoise_tokens against the same
+    weights unquantized, then the t2i serving row (configs/t2i_512.yaml,
+    int8, dpmpp_2m at 12 steps, B = 8, bf16 weights) beside `t2i_bf16`, the
+    t2i_512 phase's bf16 ddim@50 row. {path: launches}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.models.diffusion import AVDiffusionModel
+    from multimodal_diffusion_torch.tools.profile_t2i import t2i_workload
+    from multimodal_diffusion_torch.tools.profile_v2a import v2a_workload
+
+    products = int8_product_cases(spin_cycles_per_s())
+
+    cfg, model, run = v2a_workload(V2A_CLIPS, V2A_STEPS, config="specificity8", quant="int8",
+                                   bf16_params=True)
+    per_batch = V2A_STEPS * cfg["model"]["core"]["n_layers"]
+    want = {"flash_fwd": per_batch, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    reset_launch_counts(fa)
+    t0 = time.perf_counter()
+    wav = run()["audio"]
+    first_s = time.perf_counter() - t0
+    spec8 = launch_counts(fa)
+    if spec8 != want:
+        raise AssertionError(f"int8 flagship v2a launches {spec8}, expected {want}")
+    check_wav(wav, cfg, "int8 flagship v2a")
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    # the same weights with the core unquantized (tensors shared, not copied)
+    c = model.cfg
+    with torch.device("meta"):
+        plain = AVDiffusionModel(dataclasses.replace(
+            c, core=dataclasses.replace(c.core, quant="none")))
+    plain.load_state_dict(model.state_dict(), assign=True)
+    plain.eval()
+    with torch.inference_mode():
+        q, ref = spec8_denoise(model), spec8_denoise(plain)
+    denoise = {}
+    for key in ("eps_v", "eps_a"):
+        a, b = q[key].float(), ref[key].float()
+        denoise[key] = float((a - b).norm() / b.norm())
+        if not (denoise[key] < INT8_REL_TOL and not torch.equal(a, b)):
+            raise AssertionError(f"int8 flagship denoise_tokens {key}: {denoise[key]} from the "
+                                 f"unquantized core (bound {INT8_REL_TOL}, must differ)")
+    del model, plain, run, q, ref
+    torch.cuda.empty_cache()
+
+    (REPO / "runs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_t2i_int8_", dir=REPO / "runs"))
+    try:
+        t2i_cfg, t2i, sample = t2i_workload(T2I_SERVE_BATCH, T2I_SERVE_STEPS,
+                                            ckpt_dir=work / "ckpt", quant="int8",
+                                            bf16_params=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tc = t2i.cfg
+    expected = T2I_SERVE_STEPS * tc.core.n_layers + 2 * tc.text.core.n_layers
+    want = {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    t2i_launches, t2i_times = {"flash_fwd": 0}, []
+    for i in range(4):  # a warm-up, then 3 timed batches
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        imgs = sample(sampler="dpmpp_2m")
+        t2i_times.append(time.perf_counter() - t0)
+        got = launch_counts(fa)
+        if got != want:
+            raise AssertionError(f"int8 t2i serving batch launches {got}, expected {want}")
+        shape = (T2I_SERVE_BATCH, tc.image_size, tc.image_size, 3)
+        if imgs.shape != shape or imgs.dtype != np.uint8:
+            raise AssertionError(f"int8 t2i images {imgs.shape} {imgs.dtype}")
+        t2i_launches["flash_fwd"] += got["flash_fwd"]
+    median_s = statistics.median(t2i_times[1:])
+    emit({"phase": "int8", "compute_dtype": "bfloat16", "products": products,
+          "spec8_v2a": {"config": "mvp+specificity8 + model.core.quant int8", "clips": V2A_CLIPS,
+                        "steps": V2A_STEPS, "bf16_params": True, "launches": spec8,
+                        "first_batch_s": first_s, "batch_s": times,
+                        "clips_per_s": V2A_CLIPS / statistics.median(times),
+                        "wav_max_abs": float(np.abs(wav).max()),
+                        "denoise_rel_err_vs_unquantized": denoise, "rel_tol": INT8_REL_TOL},
+          "t2i_serving": {"config": "configs/t2i_512.yaml + model.core.quant int8",
+                          "batch": T2I_SERVE_BATCH, "steps": T2I_SERVE_STEPS,
+                          "sampler": "dpmpp_2m", "bf16_params": True,
+                          "flash_fwd_per_batch": expected, "first_batch_s": t2i_times[0],
+                          "batch_s": t2i_times[1:], "median_batch_s": median_s,
+                          "images_per_s": T2I_SERVE_BATCH / median_s,
+                          "images_mean": float(imgs.mean())},
+          "t2i_bf16_ddim50": t2i_bf16,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del t2i, sample
+    torch.cuda.empty_cache()
+    return {"int8_spec8_v2a": spec8, "int8_t2i_serving": t2i_launches}
 
 
 def main(argv=None) -> int:
@@ -1851,7 +2243,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["spec8_stream"] = spec8_stream_phase(fa)
     torch.cuda.empty_cache()
-    by_path.update(text_family_phases(fa))
+    text_paths, t2i_row = text_family_phases(fa)
+    by_path.update(text_paths)
+    by_path["serve_spec8"] = serve_spec8_phase(fa)
+    torch.cuda.empty_cache()
+    by_path.update(int8_phases(fa, t2i_row))
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
-from ..train.checkpoint import (CheckpointManager, checkpoint_format, jax_params_only,
-                                params_only_tree)
+from ..train.checkpoint import (CheckpointManager, cast_params_bf16, checkpoint_format,
+                                jax_params_only, params_only_tree)
 from ..train.orbax_reader import read_orbax_step
 from ..utils.convert import load_jax_params
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
@@ -95,11 +95,14 @@ def checkpoint_state_dict(cfg: Dict, model: AVDiffusionModel,
 
 
 def build_components(cfg: Dict, params: Optional[Mapping] = None,
-                     device: Device = "cuda", use_ema: bool = False) -> AVDiffusionModel:
+                     device: Device = "cuda", use_ema: bool = False,
+                     bf16_params: bool = False) -> AVDiffusionModel:
     """The model in eval mode on `device`: weights from a JAX params tree
     when given, else from the checkpoint paths.ckpt_path names
     (``checkpoint_state_dict``; the EMA weights swapped in when `use_ema`),
-    else a random init seeded by cfg['seed'].
+    else a random init seeded by cfg['seed']. With `bf16_params` and a bf16
+    compute config the fp32 weights become bf16 once after the restore
+    (``cast_params_bf16``; inference only), as the JAX package's.
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions
@@ -108,16 +111,18 @@ def build_components(cfg: Dict, params: Optional[Mapping] = None,
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = AVDiffusionModel(AVDiffusionConfig.from_config(
-        cfg, dtype=compute_dtype_from_config(cfg)))
+    dtype = compute_dtype_from_config(cfg)
+    model = AVDiffusionModel(AVDiffusionConfig.from_config(cfg, dtype=dtype))
     if params is not None:
         load_jax_params(model, params)
-        return model.to(dev).eval()
-    state = checkpoint_state_dict(cfg, model, use_ema)
-    if state is not None:
-        model.load_state_dict(state, strict=True)
     else:
-        init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+        state = checkpoint_state_dict(cfg, model, use_ema)
+        if state is not None:
+            model.load_state_dict(state, strict=True)
+        else:
+            init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+    if bf16_params and dtype == torch.bfloat16:
+        cast_params_bf16(model)
     return model.to(dev).eval()
 
 
@@ -243,6 +248,9 @@ def main(argv=None):
     ap.add_argument("--out-audio", type=Path, default=None, help="Output wav path (for V->A)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu; cuda raises when absent")
+    ap.add_argument("--bf16-params", action="store_true",
+                    help="Cast weights to bf16 once for faster inference "
+                         "(bf16 compute configs only)")
     add_checkpoint_args(ap)
     args = ap.parse_args(argv)
 
@@ -250,7 +258,8 @@ def main(argv=None):
     from ..media.video_io import load_frames_dir, write_frames
 
     cfg = config_with_checkpoint(load_config(*args.config), args.ckpt)
-    model = build_components(cfg, device=args.device, use_ema=args.ema)
+    model = build_components(cfg, device=args.device, use_ema=args.ema,
+                             bf16_params=args.bf16_params)
     prompt_modality = cfg.get("sampling", {}).get("prompt_modality", "video")
     if prompt_modality == "video":
         if args.frames is None:

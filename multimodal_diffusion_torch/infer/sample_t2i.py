@@ -23,7 +23,7 @@ import torch
 
 from ..models.diffusion import init_weights
 from ..models.latent_text2image import Text2ImageConfig, Text2ImageModel, sample_images
-from ..train.checkpoint import CheckpointManager, checkpoint_format
+from ..train.checkpoint import CheckpointManager, cast_params_bf16, checkpoint_format
 from ..train.orbax_reader import read_orbax_step
 from ..utils.convert import jax_params_to_state_dict
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
@@ -49,21 +49,25 @@ def t2i_state_dict(cfg: Dict) -> Optional[Dict[str, torch.Tensor]]:
     return sd
 
 
-def build_t2i(cfg: Dict, device: Union[str, torch.device] = "cuda") -> Text2ImageModel:
+def build_t2i(cfg: Dict, device: Union[str, torch.device] = "cuda",
+              bf16_params: bool = False) -> Text2ImageModel:
     """The config's Text2ImageModel in eval mode on `device`, with the
     weights of ``t2i_state_dict`` (strict), else a random init seeded by
-    cfg['seed']."""
+    cfg['seed']; with `bf16_params` and bf16 compute, the fp32 weights cast
+    to bf16 once (``cast_params_bf16``, as ``bench.py``'s t2i task does)."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = Text2ImageModel(Text2ImageConfig.from_config(
-        cfg, dtype=compute_dtype_from_config(cfg)))
+    dtype = compute_dtype_from_config(cfg)
+    model = Text2ImageModel(Text2ImageConfig.from_config(cfg, dtype=dtype))
     sd = t2i_state_dict(cfg)
     if sd is None:
         print("[info] no checkpoint; sampling with random weights")
         init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))
     else:
         model.load_state_dict(sd, strict=True)
+    if bf16_params and dtype == torch.bfloat16:
+        cast_params_bf16(model)
     return model.to(dev).eval()
 
 

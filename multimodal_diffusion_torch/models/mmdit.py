@@ -9,6 +9,10 @@ Dropout (residual, MLP, token and attention-probability dropout) is on under
 ``module.train()`` and off under ``eval()``. It draws only from an explicit
 ``torch.Generator`` that ``set_dropout_generator`` hands to every dropout
 module; a training-mode dropout without one raises (no global RNG).
+
+Under ``quant: "int8"`` the four hot projections (qkv, attention out, fc1,
+fc2) run W8A8 (``ops/quant.py``) on eval-mode passes, the JAX package's
+deterministic ones; a training pass is exactly the unquantized program.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import mha_reference, multi_head_attention, padding_bias
+from ..ops.quant import Int8Weight, int8_linear
 from ..ops.tokenize import pad_to_multiple
 from .adapters import Dense
+
+QUANT_MODES = ("none", "int8")
 
 
 class Dropout(nn.Module):
@@ -79,11 +86,13 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         norm = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-12)
-        return (self.weight * xf / (norm + self.eps)).to(self.dtype)
+        return (self.weight.float() * xf / (norm + self.eps)).to(self.dtype)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with eps 1e-5, statistics in fp32, output in ``dtype``."""
+    """LayerNorm with eps 1e-5, statistics in fp32, output in ``dtype``;
+    scale and bias are used in fp32 (bf16 serving weights are upcast, as
+    flax promotes them)."""
 
     def __init__(self, d: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -92,7 +101,7 @@ class LayerNorm(nn.Module):
         self.eps, self.dtype = eps, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias,
+        return F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(),
                             self.eps).to(self.dtype)
 
 
@@ -121,6 +130,22 @@ def rotary_embed(q: torch.Tensor, k: torch.Tensor, max_period: float = 10_000.0)
     return rot(q), rot(k)
 
 
+class HotDense(Dense):
+    """A Dense of the core's four hot projections: under quant "int8" an
+    eval-mode pass runs ``int8_linear`` on the weight quantized once per
+    parameter version; a training pass is the plain Dense."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, quant: str = "none"):
+        super().__init__(d_in, d_out, dtype)
+        self.int8_weight = Int8Weight() if quant == "int8" else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_weight is None or self.training:
+            return super().forward(x)
+        return int8_linear(x, self.weight, self.bias, self.dtype,
+                           self.int8_weight(self.weight, self.dtype))
+
+
 class Attention(nn.Module):
     """Self-attention with a fused qkv projection (biases), optional RoPE, and
     an output projection, then residual dropout. Attention itself goes through
@@ -131,13 +156,13 @@ class Attention(nn.Module):
 
     def __init__(self, d: int, n_heads: int, rope: bool = False,
                  dtype: torch.dtype = torch.float32, attn_dropout: float = 0.0,
-                 resid_dropout: float = 0.0):
+                 resid_dropout: float = 0.0, quant: str = "none"):
         super().__init__()
         if d % n_heads:
             raise ValueError(f"d_model {d} not divisible by n_heads {n_heads}")
         self.n_heads, self.rope = n_heads, rope
-        self.qkv = Dense(d, 3 * d, dtype)
-        self.out = Dense(d, d, dtype)
+        self.qkv = HotDense(d, 3 * d, dtype, quant)
+        self.out = HotDense(d, d, dtype, quant)
         self.attn_drop = Dropout(attn_dropout)
         self.resid_drop = Dropout(resid_dropout)
 
@@ -166,11 +191,12 @@ class MLP(nn.Module):
     -> dropout."""
 
     def __init__(self, d: int, mlp_ratio: float = 4.0, gelu_exact: bool = True,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 quant: str = "none"):
         super().__init__()
         hidden = int(d * mlp_ratio)
-        self.fc1 = Dense(d, hidden, dtype)
-        self.fc2 = Dense(hidden, d, dtype)
+        self.fc1 = HotDense(d, hidden, dtype, quant)
+        self.fc2 = HotDense(hidden, d, dtype, quant)
         self.approximate = "none" if gelu_exact else "tanh"
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
@@ -186,12 +212,12 @@ class Block(nn.Module):
     def __init__(self, d: int, n_heads: int, mlp_ratio: float, norm: str,
                  rope: bool, gelu_exact: bool = True,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, quant: str = "none"):
         super().__init__()
         self.norm1 = make_norm(norm, d, dtype)
-        self.attn = Attention(d, n_heads, rope, dtype, attn_dropout, dropout)
+        self.attn = Attention(d, n_heads, rope, dtype, attn_dropout, dropout, quant)
         self.norm2 = make_norm(norm, d, dtype)
-        self.mlp = MLP(d, mlp_ratio, gelu_exact, dtype, dropout)
+        self.mlp = MLP(d, mlp_ratio, gelu_exact, dtype, dropout, quant)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
@@ -218,6 +244,7 @@ class MMDiTConfig:
     # pad the token axis to a multiple of this; pad rows are masked keys and
     # their outputs are sliced off
     seq_multiple: int = 1
+    # "int8": W8A8 hot projections on eval-mode passes (ops/quant.py)
     quant: str = "none"
 
     @classmethod
@@ -235,14 +262,13 @@ class MMDiT(nn.Module):
 
     def __init__(self, cfg: MMDiTConfig):
         super().__init__()
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"model.core.quant={cfg.quant!r} is not ported yet (int8 comes later)")
+        if cfg.quant not in QUANT_MODES:
+            raise ValueError(f"model.core.quant must be none|int8, got {cfg.quant!r}")
         self.cfg = cfg
         self.token_drop = TokenDropout(cfg.token_dropout)
         self.blocks = nn.ModuleList(
             Block(cfg.d_model, cfg.n_heads, cfg.mlp_ratio, cfg.norm, cfg.rope,
-                  cfg.gelu_exact, cfg.dtype, cfg.dropout, cfg.attn_dropout)
+                  cfg.gelu_exact, cfg.dtype, cfg.dropout, cfg.attn_dropout, cfg.quant)
             for _ in range(cfg.n_layers))
         self.norm = make_norm(cfg.norm, cfg.d_model, cfg.dtype)
 

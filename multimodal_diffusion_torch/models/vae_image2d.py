@@ -95,15 +95,16 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm(min(8, C) groups, eps 1e-6) with fp32 statistics, output in
-    ``dtype``."""
+    """GroupNorm(min(8, C) groups, eps 1e-6) in fp32 (statistics, and scale
+    and bias upcast when the serving weights are bf16), output in ``dtype``."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32):
         super().__init__(min(8, c), c, eps=1e-6)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(self.dtype)
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                            self.eps).to(self.dtype)
 
 
 class ResBlock2D(nn.Module):

@@ -99,7 +99,8 @@ class Conv3d(nn.Conv3d):
 
 class ConvBlock3D(nn.Module):
     """Conv3d(k=3, same) -> GELU -> GroupNorm(min(8, C), eps 1e-5): the norm
-    sits AFTER the activation. GroupNorm statistics in fp32."""
+    sits AFTER the activation. GroupNorm in fp32 (statistics, and scale and
+    bias upcast when the serving weights are bf16)."""
 
     def __init__(self, c_in: int, features: int, dtype: torch.dtype):
         super().__init__()
@@ -109,7 +110,9 @@ class ConvBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.gelu(self.conv(x), approximate="none")
-        return self.norm(x.float()).to(self.dtype)
+        n = self.norm
+        return F.group_norm(x.float(), n.num_groups, n.weight.float(), n.bias.float(),
+                            n.eps).to(self.dtype)
 
 
 class VideoVAE(nn.Module):

@@ -121,6 +121,20 @@ def params_only_tree(tree: Dict[str, Any], use_ema: bool = False) -> Dict[str, t
     return params
 
 
+@torch.no_grad()
+def cast_params_bf16(model: torch.nn.Module) -> torch.nn.Module:
+    """Serving weights: every fp32 parameter of `model` becomes bf16, once,
+    in place (the JAX package's ``cast_params_bf16`` of the params tree);
+    other parameters (already bf16) and buffers pass through. Inference
+    only: halves the weight traffic and makes a bf16 layer's per-use weight
+    cast a no-op; layers that compute in fp32 (norms) upcast at use, as
+    flax promotes. Returns `model`."""
+    for p in model.parameters():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(torch.bfloat16)
+    return model
+
+
 def checkpoint_format(step_dir) -> Optional[str]:
     """'port' for a step directory of this port (``params.pt``), 'jax' for
     one of the JAX package's orbax checkpoints (``default/_METADATA``),

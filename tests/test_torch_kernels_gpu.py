@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash forward, flash backward dK/dV and dQ)
-against their plain PyTorch versions, on a CUDA card only (marker `gpu`;
+against their plain PyTorch versions, and the int8 W8A8 product
+(torch._int_mm) against its CPU path, on a CUDA card only (marker `gpu`;
 every test skips without a card). Imports no JAX, so it runs where only the
 port is installed:
 
@@ -567,3 +568,71 @@ def test_text_families_denoise_through_the_kernel(cuda):
         b = model.denoise(z, t, text, pad, use_kernel=False)
     assert a.shape == (2, 4, 8, 8)
     assert float((a.float() - b.float()).abs().max()) <= 1.5e-2 * float(b.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(6736, 1024, 3072), (421, 4096, 1024), (5, 512, 512),
+                                   (17, 64, 8)])
+def test_int8_linear_on_the_card_equals_its_cpu_path(cuda, M, K, N):
+    """Integers, scales, the int32 product and the bf16 output bit-equal to
+    the CPU path on the same bf16 input (5 rows: padded to 17 inside)."""
+    from multimodal_diffusion_torch.ops import quant as Q
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(N, K, generator=g, device=cuda) / K ** 0.5).to(torch.bfloat16)
+    b = torch.randn(N, generator=g, device=cuda).to(torch.bfloat16)
+    a8, s_a = Q.quantize_rowwise(x)
+    qw = Q.quantize_weight(w, torch.bfloat16)
+    y32 = Q.int8_matmul(a8, qw[0])
+    y = Q.int8_linear(x, w, b, torch.bfloat16, qw)
+    torch.cuda.synchronize()
+    rows = slice(0, min(M, 256))
+    ca8, cs_a = Q.quantize_rowwise(x[rows].cpu())
+    cqw = Q.quantize_weight(w.cpu(), torch.bfloat16)
+    assert y32.dtype == torch.int32 and y32.shape == (M, N)
+    assert torch.equal(a8[rows].cpu(), ca8) and torch.equal(s_a[rows].cpu(), cs_a)
+    assert torch.equal(qw[0].cpu(), cqw[0]) and torch.equal(qw[1].cpu(), cqw[1])
+    assert torch.equal(y32[rows].cpu(), Q.int8_matmul(ca8, cqw[0]))
+    assert torch.equal(y[rows].cpu(),
+                       Q.int8_linear(x[rows].cpu(), w.cpu(), b.cpu(), torch.bfloat16, cqw))
+
+
+@pytest.mark.gpu
+def test_int8_product_refuses_what_int_mm_cannot_take(cuda):
+    from multimodal_diffusion_torch.ops import quant as Q
+
+    a8 = torch.ones(32, 12, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        Q.int8_matmul(a8, torch.ones(16, 12, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="N=20"):
+        Q.int8_matmul(torch.ones(32, 16, dtype=torch.int8, device=cuda),
+                      torch.ones(20, 16, dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.gpu
+def test_int8_core_on_the_card_and_its_guided_gradient(cuda):
+    """An int8 MMDiT in eval mode on the card: close to its CPU run (the
+    flash kernel vs the CPU's dense attention) and to the unquantized core;
+    a gradient w.r.t. the input flows through the activation scales only,
+    with the quantized weights cached under inference mode."""
+    from multimodal_diffusion_torch.models import mmdit as M
+
+    cfg = M.MMDiTConfig(d_model=256, n_layers=2, n_heads=2, mlp_ratio=4.0, dropout=0.0,
+                        dtype=torch.bfloat16, quant="int8")
+    torch.manual_seed(0)
+    core = M.MMDiT(cfg)
+    for p in core.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    core.eval()
+    x = torch.randn(4, 133, 256)
+    with torch.inference_mode():
+        ref = core(x).float()
+    core.to(cuda)
+    with torch.inference_mode():
+        got = core(x.to(cuda)).float().cpu()
+    assert float((got - ref).norm() / ref.norm()) < 2e-2
+    xg = x.to(cuda).requires_grad_(True)
+    (g,) = torch.autograd.grad(core(xg).float().square().sum(), xg)
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0
+    assert all(p.grad is None for p in core.parameters())

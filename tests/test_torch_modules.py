@@ -83,8 +83,11 @@ def test_mmdit(kw, masked):
 
 
 def test_mmdit_quant_raises():
-    with pytest.raises(NotImplementedError):
-        TM.MMDiT(TM.MMDiTConfig.from_dict(_core_cfg(quant="int8")))
+    """int8 is ported (tests/test_torch_quant.py); an unknown value raises
+    the JAX package's ValueError."""
+    with pytest.raises(ValueError, match="quant"):
+        TM.MMDiT(TM.MMDiTConfig.from_dict(_core_cfg(quant="fp4")))
+    TM.MMDiT(TM.MMDiTConfig.from_dict(_core_cfg(quant="int8")))
 
 
 def test_heads(models):

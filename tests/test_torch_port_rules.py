@@ -14,6 +14,7 @@ import torch
 from _torch_parity import jax_model_and_params, shrunk_cfg, shrunk_flagship_cfg
 from multimodal_diffusion_torch.infer import sample_clip, sample_t2i
 from multimodal_diffusion_torch.models.diffusion import AVDiffusionConfig, AVDiffusionModel
+from multimodal_diffusion_torch.serve import runner
 from multimodal_diffusion_torch.train import train_joint
 from multimodal_diffusion_torch.train.trainer import create_trainer
 from multimodal_diffusion_torch.utils import io as tio
@@ -138,13 +139,17 @@ def test_entry_points_raise_without_cuda(no_cuda):
                          "--prompt", "a red fox"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample_t2i.build_t2i(load_config(REPO / "configs" / "t2i_512.yaml"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.InferenceRunner(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.main(["--config", str(REPO / "configs" / "mvp.yaml"),
+                     str(REPO / "configs" / "specificity8.yaml"), "--manifest", "unused.json"])
 
 
 def test_unported_options_raise(monkeypatch):
     """Exactly these still raise NotImplementedError: parallel.context,
-    parallel.pipe, parallel.model > 1, parallel.remat_core, quant: int8, the
-    variational VAE and train_joint under WORLD_SIZE > 1."""
-    from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
+    parallel.pipe, parallel.model > 1, parallel.remat_core, the variational
+    VAE and train_joint under WORLD_SIZE > 1."""
     from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
 
     cfg = shrunk_cfg()
@@ -158,8 +163,6 @@ def test_unported_options_raise(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
         train_joint.main(["--config", str(REPO / "configs" / "mvp.yaml"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        MMDiT(MMDiTConfig(d_model=64, n_layers=1, n_heads=4, quant="int8"))
     with pytest.raises(NotImplementedError):
         VideoVAE(VideoVAEConfig(variational=True))
 
