@@ -30,7 +30,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                t2i sampler's [16, 4, 1152, 128], the t2a sampler's
                [16, 6, 397, 64] and the text encoder's [16, 4, 77, 64], the
                forward and the backward pair at the t2i train step's
-               [32, 4, 1152, 128] and [32, 4, 77, 64];
+               [32, 4, 1152, 128] and [32, 4, 77, 64]; last, unmasked and
+               bf16, the pixel sampler's forward at [16, 6, 64, 64] and the
+               pixel train step's forward and backward pair at
+               [128, 6, 64, 64];
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -156,6 +159,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                timed batches of exactly 12 x 16 + 2 x 4 = 200 forward
                launches, uint8 [8, 512, 512, 3]) beside t2i_512's bf16
                ddim@50 row.
+ 19. pixel32_train — train/train_pixel.main at configs/pixel32.yaml's width
+               (d=384, 12 layers, 6 heads of 64, patch 4: N = 64; B=128;
+               bf16) on a folder of 512 32x32 JPEGs written here (decoded
+               by the native loader where it builds, else PIL; the line
+               says which), paths under a scratch directory: 2 + 16
+               steps, exactly 12 launches of each kernel a step, finite
+               logged losses, the final checkpoint; step time, images/s,
+               the step's MFU against the peak and against calib_tflops(),
+               peak memory; one full-width gradient on the checkpoint's
+               weights with and without the kernels within GRAD_REL_TOL;
+ 20. pixel32_sample — infer/sample_pixel.main restoring that checkpoint:
+               16 images by the 1000-step ancestral sampler, exactly
+               12 x 1000 = 12,000 forward launches a call, 16 PNGs equal to
+               the sampler's uint8 images of the same seed; two more calls
+               with the same seed give the same bits, finite and within
+               [-1, 1] before quantization; s per call, images/s, and one
+               call under the profiler (device activity only) for the busy
+               time and idle share; one PixelDiT forward with and without
+               the kernel within PIXEL_DENOISE_REL_TOL;
+ 21. spec8_remat — calib_tflops() on a line of its own, then the flagship
+               train step (spec8_train's setup: B=8, bf16 moments, core
+               dropout 0.1) with parallel.remat_core off and then on, from
+               the same seed and batch: 2 + 5 steps each (none with the
+               decode), exactly 16 / 16 / 16 launches a step without remat
+               and 32 / 16 / 16 with it, each step's loss within
+               REMAT_REL_TOL, the logged denoiser_mfu equal to the JAX
+               loop's formula and a denoiser_mfu_vs_calib, each run's peak
+               memory; on the remat trainer's model one step's forward and
+               backward with and without the recompute (the same draws and
+               generator state): grads within REMAT_REL_TOL of their
+               largest magnitude, the generator left in the same state, and
+               a lower peak under remat (the step's own peak is the
+               optimizer's update, which remat does not touch).
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -167,6 +203,7 @@ Then a `kernels` line, the nvidia-smi line, and as the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -295,6 +332,27 @@ PEAK_INT8_OPS = 1979e12
 INT8_REL_TOL = 5e-2
 # the JAX bench.py --serving row: t2i-512, dpmpp_2m at 12 steps, int8, B = 8
 T2I_SERVE_BATCH, T2I_SERVE_STEPS = 8, 12
+
+# the pixel DDPM family at configs/pixel32.yaml width (d=384, 12 layers, 6
+# heads of 64, 8x8 patches of 4: N = 64, bf16): the train CLI at its batch of
+# 128 on a folder of PIXEL_IMAGES 32x32 JPEGs (the native decode path),
+# PIXEL_WARMUP steps then PIXEL_STEPS timed; the sampling CLI restoring that
+# checkpoint, 16 images by the 1000-step ancestral sampler
+PIXEL_IMAGES, PIXEL_WARMUP, PIXEL_STEPS, PIXEL_SAMPLES = 512, 2, 16, 16
+# (name, [B, H, N, Dh], backward too): the pixel sampler's forward and the
+# train step's forward and backward pair, unmasked
+PIXEL_KERNEL_CASES = [("pixel_sample", (16, 6, 64, 64), False),
+                      ("pixel_train", (128, 6, 64, 64), True)]
+# PixelDiT's forward with and without the kernel, bf16: 12 layers round
+# between mvp's 8 (1.5e-2) and the flagship's 16 (2e-2) times; the latter
+PIXEL_DENOISE_REL_TOL = 2e-2
+# the flagship train step with parallel.remat_core beside the same step
+# without it: REMAT_STEPS timed steps after TRAIN_WARMUP (steps 3..7, none
+# with the decode); each step's loss, and one step's grads relative to their
+# largest magnitude, within REMAT_REL_TOL (the recompute gives the forward's
+# bits: the same kernels on the same inputs, the same dropout masks)
+REMAT_STEPS = 5
+REMAT_REL_TOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -2195,6 +2253,387 @@ def int8_phases(fa, t2i_bf16):
     return {"int8_spec8_v2a": spec8, "int8_t2i_serving": t2i_launches}
 
 
+def pixel_kernel_cases(fa, cycles_per_s):
+    """bf16, unmasked: the forward at the pixel sampler's [16, 6, 64, 64] and
+    the forward and backward pair at the train step's [128, 6, 64, 64], each
+    against its plain version, timed beside it, SDPA and the bound."""
+    import torch
+
+    dev = torch.device("cuda")
+    results = {}
+    for name, shape, backward in PIXEL_KERNEL_CASES:
+        B, H, N, Dh = shape
+        g = torch.Generator(device=dev).manual_seed(90 + B)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        out, lse, rec = forward_case(fa, name, q, k, v, None, [N] * B, cycles_per_s)
+        results[name] = {"fwd": rec}
+        if backward:
+            dout = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            results[name].update(backward_case(fa, name, q, k, v, None, out, lse, dout,
+                                               [N] * B, cycles_per_s))
+    return results
+
+
+def pixel_config(work_dir):
+    """configs/pixel32.yaml with its paths and images under `work_dir`, a
+    log line every step and no checkpoint before the last: (the config,
+    the CLI's --config arguments)."""
+    from multimodal_diffusion_torch.utils.io import load_config
+
+    overlay = work_dir / "pixel_overlay.yaml"
+    overlay.write_text(json.dumps({
+        "paths": {"out_root": str(work_dir), "ckpt_dir": str(work_dir / "ckpt"),
+                  "log_dir": str(work_dir / "logs"), "samples_dir": str(work_dir / "samples")},
+        "data": {"train_images": str(work_dir / "images")},
+        "training": {"log_every": 1, "ckpt_every": 100000}}))
+    args = [str(REPO / "configs" / "pixel32.yaml"), str(overlay)]
+    return load_config(*args), args
+
+
+def pixel_train_phase(fa, work_dir):
+    """train/train_pixel.main at configs/pixel32.yaml's width and batch on a
+    folder of 32x32 JPEGs written here, then one full-width gradient with
+    the kernels and with dense attention."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_diffusion_torch.datasets import native_loader
+    from multimodal_diffusion_torch.infer.sample_pixel import build_pixel
+    from multimodal_diffusion_torch.models.image_diffusion import (draw_pixel_randomness,
+                                                                   pixel_loss, pixel_schedule)
+    from multimodal_diffusion_torch.train import train_pixel
+    from multimodal_diffusion_torch.train.trainer import global_norm
+    from multimodal_diffusion_torch.utils.profiling import calib_tflops, flops_mmdit_forward, mfu
+
+    images = work_dir / "images"
+    images.mkdir()
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:32, 0:32]
+    for i in range(PIXEL_IMAGES):  # smooth colour ramps and a little noise
+        base = rng.uniform(0, 255, 3) + rng.uniform(-3, 3, 3) * (xx[..., None] + yy[..., None])
+        img = np.clip(base + rng.normal(0, 8, (32, 32, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(images / f"img_{i:04d}.jpg", quality=95)
+    # iter_image_batches decodes a folder of JPEGs with the native loader
+    # when it builds (g++ and libjpeg's headers), else with PIL
+    decode = "native" if native_loader.available() else "PIL"
+    cfg, args = pixel_config(work_dir)
+    B = int(cfg["data"]["batch_size"])
+    n_layers = int(cfg["model"]["core"]["n_layers"])
+    steps = PIXEL_WARMUP + PIXEL_STEPS
+    reset_launch_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = train_pixel.main(["--config", *args, "--max-steps", str(steps)])
+    cli_s = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if done != steps or any(n != n_layers * steps for n in launches.values()):
+        raise AssertionError(f"pixel train: {done} steps, launches {launches}, expected "
+                             f"{n_layers} of each kernel a step")
+    logs = [json.loads(line) for line in (work_dir / "logs" / "metrics.jsonl").open()]
+    if [m["step"] for m in logs] != list(range(1, steps + 1)) or \
+            not all(np.isfinite(m["loss"]) for m in logs):
+        raise AssertionError(f"pixel train logs {logs}")
+    if not (work_dir / "ckpt" / str(steps) / "params.pt").is_file():
+        raise AssertionError("pixel train wrote no final checkpoint")
+    step_s = [1.0 / m["steps_per_sec"] for m in logs[PIXEL_WARMUP:]]
+    median_s = statistics.median(step_s)
+    flops = 3.0 * B * flops_mmdit_forward(64, int(cfg["model"]["core"]["d_model"]), n_layers,
+                                          float(cfg["model"]["core"]["mlp_ratio"]))
+    calib = calib_tflops()
+    # the host's share of a step: one batch of iter_image_batches alone
+    batches = train_pixel.iter_image_batches(images, int(cfg["image"]["size"]), B)
+    next(batches)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        next(batches)
+    decode_s = (time.perf_counter() - t0) / 8
+
+    # one full-width gradient with the kernels and with dense attention, on
+    # the checkpoint's weights, the first batch and fixed draws
+    model = build_pixel(cfg, "cuda")
+    c = model.cfg
+    batch = torch.from_numpy(next(train_pixel.iter_image_batches(images, c.image_size, B)))
+    draws = draw_pixel_randomness(torch.Generator(device="cuda").manual_seed(7), c, B)
+    abar = torch.as_tensor(pixel_schedule(c)[1], device="cuda")
+    named = list(model.named_parameters())
+    grads = {}
+    for use_kernel in (True, False):
+        loss = pixel_loss(model, batch.cuda(), draws, abar, use_kernel)
+        gs = torch.autograd.grad(loss, [p for _, p in named])
+        grads[use_kernel] = {k: g for (k, _), g in zip(named, gs)}
+    qkv = [k for k in grads[False] if k.endswith("attn.qkv.weight")]
+    qkv_rel = max(float((grads[True][k] - grads[False][k]).abs().max())
+                  / float(grads[False][k].abs().max()) for k in qkv)
+    norms = {k: float(global_norm(list(g.values()))) for k, g in grads.items()}
+    norm_rel = abs(norms[True] - norms[False]) / norms[False]
+    if len(qkv) != n_layers or max(qkv_rel, norm_rel) > GRAD_REL_TOL:
+        raise AssertionError(f"pixel grads with the kernels vs dense: qkv {qkv_rel}, norm "
+                             f"{norm_rel} (tol {GRAD_REL_TOL}, {len(qkv)} qkv grads)")
+    del model, grads
+    torch.cuda.empty_cache()
+    emit({"phase": "pixel32_train", "config": "configs/pixel32.yaml", "batch": B,
+          "images": PIXEL_IMAGES, "decode": decode, "compute_dtype": "bfloat16",
+          "core": {"d_model": c.core.d_model, "n_layers": n_layers, "n_heads": c.core.n_heads,
+                   "tokens": c.n_tokens},
+          "warmup_steps": PIXEL_WARMUP, "cli_s": cli_s, "step_s": step_s,
+          "median_step_s": median_s, "train_images_per_s": B / median_s,
+          "decode_s_per_batch": decode_s,
+          "losses": [m["loss"] for m in logs], "launches": launches,
+          "launches_per_step": n_layers,
+          "denoiser_mfu": mfu(flops / median_s), "calib_tflops": calib,
+          "denoiser_mfu_vs_calib": flops / median_s / 1e12 / calib,
+          "grad_check": {"qkv_weight_rel_err": qkv_rel, "grad_norm_rel_err": norm_rel,
+                         "grad_norm_kernel": norms[True], "grad_norm_dense": norms[False],
+                         "rel_tol": GRAD_REL_TOL},
+          "peak_mem_gb": peak_gb})
+    return launches
+
+
+def pixel_sample_phase(fa, work_dir):
+    """infer/sample_pixel.main restoring pixel32_train's checkpoint: 16
+    images by the 1000-step ancestral sampler; then two calls of the same
+    seed (the same bits), one profiled (the idle share), and one PixelDiT
+    forward with and without the kernel."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from multimodal_diffusion_torch.infer import sample_pixel
+
+    cfg, args = pixel_config(work_dir)
+    n_layers = int(cfg["model"]["core"]["n_layers"])
+    T = int(cfg["diffusion"]["image"]["steps"])
+    want = {"flash_fwd": T * n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    reset_launch_counts(fa)
+    t0 = time.perf_counter()
+    pngs = sample_pixel.main(["--config", *args, "--num", str(PIXEL_SAMPLES),
+                              "--out-dir", str(work_dir / "png"), "--seed", "1"])
+    cli_s = time.perf_counter() - t0
+    if launch_counts(fa) != want:
+        raise AssertionError(f"pixel sampler CLI launches {launch_counts(fa)}, expected {want}")
+    shape = (PIXEL_SAMPLES, cfg["image"]["size"], cfg["image"]["size"], 3)
+    pixels = []
+    for p in pngs:
+        with Image.open(p) as im:
+            pixels.append(np.asarray(im))
+    if len(pixels) != PIXEL_SAMPLES or np.stack(pixels).shape != shape:
+        raise AssertionError(f"the sampling CLI wrote {len(pixels)} images")
+    launches = {"flash_fwd": want["flash_fwd"]}
+
+    # the same seed twice: the first call timed, the second under the
+    # profiler (device activity only: a call makes ~5 x 10^5 launches) for
+    # the device's busy time and idle share
+    from torch.profiler import ProfilerActivity, profile
+
+    model = sample_pixel.build_pixel(cfg, "cuda")
+    calls = []
+    for profiled in (False, True):
+        reset_launch_counts(fa)
+        with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            calls.append(sample_pixel.sample_pixel_images(model, PIXEL_SAMPLES, seed=1))
+            call_s = time.perf_counter() - t0
+        if launch_counts(fa) != want:
+            raise AssertionError(f"pixel sampler launches {launch_counts(fa)}, expected {want}")
+        launches["flash_fwd"] += want["flash_fwd"]
+        if profiled:
+            profiled_s = call_s
+        else:
+            per_call = call_s
+    # the raw device records (key_averages() would build ~5 x 10^5
+    # FunctionEvents first: a minute on the card's host)
+    t0 = time.perf_counter()
+    events = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation()]
+    profile_read_s = time.perf_counter() - t0
+    busy_s = sum(ns for _, ns in events) / 1e9
+    flash_s = sum(ns for name, ns in events if "flash_" in name) / 1e9
+    imgs = calls[0][0]
+    if imgs.shape != (PIXEL_SAMPLES,) + model.cfg.image_shape or not np.all(np.isfinite(imgs)) \
+            or imgs.min() < -1.0 or imgs.max() > 1.0:
+        raise AssertionError(f"pixel samples {imgs.shape}, range [{imgs.min()}, {imgs.max()}]")
+    repeat_equal = bool(np.array_equal(calls[0][0], calls[1][0]))
+    if not repeat_equal:
+        raise AssertionError("two sampler calls of the same seed differ")
+    if not np.array_equal(calls[0][1], np.stack(pixels)):
+        raise AssertionError("the CLI's PNGs are not the sampler's images of the same seed")
+
+    # one forward of the sampler's batch with and without the kernel
+    reset_launch_counts(fa)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((PIXEL_SAMPLES,) + model.cfg.image_shape, generator=g, device="cuda")
+    t = torch.randint(0, T, (PIXEL_SAMPLES,), generator=g, device="cuda")
+    with torch.inference_mode():
+        a, b = (model(x, t, use_kernel=k) for k in (True, False))
+    launches["flash_fwd"] += launch_counts(fa)["flash_fwd"]
+    rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    if not rel <= PIXEL_DENOISE_REL_TOL:
+        raise AssertionError(f"PixelDiT kernel vs dense: {rel} > {PIXEL_DENOISE_REL_TOL}")
+    emit({"phase": "pixel32_sample", "config": "configs/pixel32.yaml", "num": PIXEL_SAMPLES,
+          "steps": T, "compute_dtype": "bfloat16", "cli_s": cli_s, "s_per_call": per_call,
+          "images_per_s": PIXEL_SAMPLES / per_call,
+          "step_ms": per_call / T * 1e3, "flash_fwd_per_call": want["flash_fwd"],
+          "repeat_bit_identical": repeat_equal, "cli_pngs_equal_sampler": True,
+          "sample_range": [float(imgs.min()), float(imgs.max())],
+          "profiled_call_s": profiled_s, "profile_read_s": profile_read_s,
+          "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / profiled_s,
+          "device_idle_share_unprofiled": 1.0 - busy_s / per_call,
+          "device_records": len(events), "flash_fwd_device_s": flash_s,
+          "forward_kernel_vs_dense_rel_err": rel, "rel_tol": PIXEL_DENOISE_REL_TOL})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pixel_phases(fa):
+    """pixel32_train then pixel32_sample, in a scratch directory under runs/
+    (deleted at the end)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    (REPO / "runs").mkdir(exist_ok=True)
+    work_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_pixel_", dir=REPO / "runs"))
+    try:
+        by_path = {"pixel32_train": pixel_train_phase(fa, work_dir)}
+        torch.cuda.empty_cache()
+        by_path["pixel32_sample"] = pixel_sample_phase(fa, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def spec8_remat_phase(fa, smi):
+    """The flagship train step (spec8_train's setup: B=8, bf16 moments, core
+    dropout 0.1) with parallel.remat_core off, then on, from the same seed
+    and batch: the same loss each step, 2 x 16 forward launches a step under
+    remat, a lower peak; then, on the remat trainer's model, one step's
+    grads with the recompute and without it from the same draws and
+    generator state. Prints calib_tflops() on a line of its own."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.ops.tokenize import num_chunks
+    from multimodal_diffusion_torch.tools.profile_train import train_workload
+    from multimodal_diffusion_torch.train import trainer as TT
+    from multimodal_diffusion_torch.utils.profiling import calib_tflops, flops_mmdit_forward, mfu
+
+    calib = calib_tflops()
+    emit({"phase": "calib", "calib_tflops": calib, "nvidia_smi": smi})
+    runs = {}
+    for remat in (False, True):
+        cfg, bundle, batch, run = train_workload(TRAIN_CLIPS, config="specificity8",
+                                                 remat=remat)
+        n_layers = cfg["model"]["core"]["n_layers"]
+        if bundle.model.core.cfg.remat is not remat or bundle.model.core.cfg.dropout != 0.1:
+            raise AssertionError(f"not the flagship core with remat {remat}")
+        run(TRAIN_WARMUP)
+        torch.cuda.reset_peak_memory_stats()
+        logs = []
+        reset_launch_counts(fa)
+        run(REMAT_STEPS, log_fn=lambda step, m: logs.append(m))
+        launches = launch_counts(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {"flash_fwd": (2 if remat else 1) * n_layers, "flash_bwd_dkdv": n_layers,
+                "flash_bwd_dq": n_layers}
+        if launches != {k: REMAT_STEPS * n for k, n in want.items()}:
+            raise AssertionError(f"remat {remat}: launches {launches} in {REMAT_STEPS} steps, "
+                                 f"expected {want} a step")
+        if len(logs) != REMAT_STEPS or any(m["loss_recon"] != 0.0 for m in logs):
+            raise AssertionError(f"remat {remat}: {len(logs)} logged steps, or a decode step")
+        runs[remat] = {"logs": logs, "peak_gb": peak_gb, "launches": launches, "want": want}
+        if not remat:
+            del bundle, run
+            torch.cuda.empty_cache()
+
+    # one step's grads on the remat trainer's model, with the recompute and
+    # without it: the same draws, the generator set to the same state
+    model, sc, shapes = bundle.model.train(), bundle.step_config, bundle.latent_shapes
+    gen = bundle.state.generator
+    draws = TT.draw_step_randomness(gen, sc)
+    state = gen.get_state()
+    dev_batch = TT.batch_to_device(batch, bundle.device)
+    # The peak of this forward + backward is what the recompute lowers (the
+    # step's own peak is the optimizer's update, after the activations are
+    # freed); each pass's grads go to the host before the next pass starts
+    named = list(model.named_parameters())
+    grads, grad_peak_gb = {}, {}
+    for remat in (True, False):
+        model.core.cfg = dataclasses.replace(model.core.cfg, remat=remat)
+        gen.set_state(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = TT.train_loss(model, sc, bundle.abar_v, bundle.abar_a, dev_batch, 0.0,
+                                draws, False)
+        gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        torch.cuda.synchronize()
+        grad_peak_gb[remat] = torch.cuda.max_memory_allocated() / 1e9
+        grads[remat] = ({k: g.cpu() for (k, _), g in zip(named, gs) if g is not None},
+                        float(loss.detach()), gen.get_state())
+        del loss, gs
+    model.core.cfg = dataclasses.replace(model.core.cfg, remat=True)
+    top = max(float(g.abs().max()) for g in grads[False][0].values())
+    grad_rel = max(float((grads[True][0][k] - g).abs().max()) for k, g in
+                   grads[False][0].items()) / top
+    grads_bit_equal = all(torch.equal(grads[True][0][k], g) for k, g in grads[False][0].items())
+    generator_equal = bool(torch.equal(grads[True][2], grads[False][2]))
+    del grads, bundle, run, model, dev_batch
+    torch.cuda.empty_cache()
+
+    losses = {r: [m["loss"] for m in runs[r]["logs"]] for r in runs}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+    if not (loss_rel <= REMAT_REL_TOL and grad_rel <= REMAT_REL_TOL and generator_equal):
+        raise AssertionError(f"remat vs not: losses {losses}, grads {grad_rel}, generator "
+                             f"equal {generator_equal} (tol {REMAT_REL_TOL})")
+    if not grad_peak_gb[True] < grad_peak_gb[False]:
+        raise AssertionError(f"the forward + backward's peak under remat, {grad_peak_gb[True]} "
+                             f"GB, is not below {grad_peak_gb[False]} GB without it")
+    # the logged MFU is the JAX loop's: 3 B flops_mmdit_forward(nv + na), the
+    # video and audio tokens (96 + 37 at the flagship) without the mouth's
+    zv, za = shapes["z_video"], shapes["z_audio"]
+    tube, chunk = cfg["tokenizer"]["video"]["tube"], cfg["tokenizer"]["audio"]["chunk"]
+    nv = (zv[2] // tube["t"]) * (zv[3] // tube["h"]) * (zv[4] // tube["w"])
+    na = num_chunks(za[2], chunk["length"], chunk["stride"])
+    core = cfg["model"]["core"]
+    flops = 3.0 * TRAIN_CLIPS * flops_mmdit_forward(nv + na, core["d_model"], n_layers,
+                                                    core["mlp_ratio"])
+    for r in runs:
+        for m in runs[r]["logs"]:
+            want_mfu = mfu(flops * m["steps_per_sec"])
+            if not (abs(m["denoiser_mfu"] - want_mfu) <= 1e-9 * want_mfu
+                    and np.isfinite(m.get("denoiser_mfu_vs_calib", np.nan))):
+                raise AssertionError(f"logged MFU {m} against {want_mfu}")
+    out = {"phase": "spec8_remat", "config": "mvp+specificity8", "clips": TRAIN_CLIPS,
+           "core_dropout": 0.1, "tokens_in_mfu": nv + na, "warmup_steps": TRAIN_WARMUP,
+           "steps": REMAT_STEPS,
+           "losses_bit_equal": losses[True] == losses[False], "loss_rel_err": loss_rel,
+           "grad_rel_err": grad_rel, "grads_bit_equal": grads_bit_equal,
+           "generator_equal": generator_equal, "rel_tol": REMAT_REL_TOL,
+           "fwd_bwd_peak_mem_gb": {"remat": grad_peak_gb[True], "no_remat": grad_peak_gb[False]},
+           "calib_tflops": calib}
+    for r in (False, True):
+        logs = runs[r]["logs"]
+        step_s = [1.0 / m["steps_per_sec"] for m in logs]
+        out["remat" if r else "no_remat"] = {
+            "step_s": step_s, "median_step_s": statistics.median(step_s),
+            "train_clips_per_s": TRAIN_CLIPS / statistics.median(step_s),
+            "losses": losses[r], "launches_per_step": runs[r]["want"],
+            "denoiser_mfu": [m["denoiser_mfu"] for m in logs],
+            "denoiser_mfu_vs_calib": [m["denoiser_mfu_vs_calib"] for m in logs],
+            "step_peak_mem_gb": runs[r]["peak_gb"]}
+    emit(out)
+    return {k: runs[True]["launches"][k] + runs[False]["launches"][k]
+            for k in runs[True]["launches"]}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2227,6 +2666,7 @@ def main(argv=None) -> int:
 
     cases = kernel_phase(fa)
     text_cases = text_family_kernel_cases(fa, spin_cycles_per_s())
+    pixel_cases = pixel_kernel_cases(fa, spin_cycles_per_s())
     by_path = {"v2a": {"flash_fwd": v2a_phase(fa)}}
     torch.cuda.empty_cache()
     by_path["train"] = train_phase(fa)
@@ -2248,6 +2688,10 @@ def main(argv=None) -> int:
     by_path["serve_spec8"] = serve_spec8_phase(fa)
     torch.cuda.empty_cache()
     by_path.update(int8_phases(fa, t2i_row))
+    torch.cuda.empty_cache()
+    by_path.update(pixel_phases(fa))
+    by_path["spec8_remat"] = spec8_remat_phase(fa, smi)
+    torch.cuda.empty_cache()
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}
@@ -2274,7 +2718,8 @@ def main(argv=None) -> int:
         **{name: {"shape": rec["shape"], "max_abs_err": rec["max_abs_err_out"],
                   "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                   "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-           for name, rec in ((n, text_cases[n]["fwd"]) for n in ("t2i_sample", "t2a_sample"))}}]
+           for name, rec in [(n, text_cases[n]["fwd"]) for n in ("t2i_sample", "t2a_sample")]
+           + [(n, pixel_cases[n]["fwd"]) for n in ("pixel_sample", "pixel_train")]}}]
     for kernel, line in (("dkdv", 205), ("dq", 276)):
         rec = cases[("mvp_train", "bfloat16", kernel)]
         flag = cases[("flagship", "bfloat16", kernel)]
@@ -2294,7 +2739,8 @@ def main(argv=None) -> int:
                        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                        "library_ms": rec["library_pair_ms"]}
                for where, rec in (("flagship", flag),
-                                  ("t2i_train", text_cases["t2i_train"][kernel]))}})
+                                  ("t2i_train", text_cases["t2i_train"][kernel]),
+                                  ("pixel_train", pixel_cases["pixel_train"][kernel]))}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,7 +10,8 @@ Parity with the reference `avdiff/models/eval/video_metrics.py`:
     parameterization for floats (7x7 uniform window, C1=(0.01 L)^2,
     C2=(0.03 L)^2, channel-averaged).
   * LPIPS mean when the optional `lpips` package exists (88-109), NaN
-    otherwise.
+    otherwise; the network runs on CUDA unless the caller asks for the CPU
+    (``--lpips-device cpu``), and raises when CUDA is asked for and absent.
   * temporal_flicker (111-120): mean |frame[t] - frame[t-1]|, no-reference.
 
 CLI:
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..media.video_io import load_frames_dir
+from ..utils.io import resolve_device
 
 try:  # optional
     import lpips as lpips_lib  # type: ignore
@@ -95,12 +97,12 @@ def ssim(ref: np.ndarray, est: np.ndarray, data_range: float = 1.0,
     return float(np.mean(vals))
 
 
-def _lpips_model(device: str = "cpu"):
+def _lpips_model(device: str = "cuda"):
+    """The LPIPS network on `device` (raises when CUDA is asked for and
+    absent: no CPU fallback), or None without the optional lpips package."""
+    dev = resolve_device(device)
     if lpips_lib is None:
         return None
-    dev = torch.device(
-        device if (device == "cuda" and torch.cuda.is_available()) else "cpu"
-    )
     model = lpips_lib.LPIPS(net="alex").to(dev)
     model.eval()
     return model
@@ -126,7 +128,7 @@ def temporal_flicker(frames: np.ndarray) -> float:
 
 
 def evaluate_video_pair(ref_dir: Path, est_dir: Path,
-                        lpips_device: str = "cpu") -> Dict[str, float]:
+                        lpips_device: str = "cuda") -> Dict[str, float]:
     ref = _to_float01(load_frames_dir(ref_dir))
     est = _to_float01(load_frames_dir(est_dir))
     T = min(ref.shape[0], est.shape[0])
@@ -155,7 +157,7 @@ def main(argv=None):
     )
     ap.add_argument("--ref", type=Path, default=None)
     ap.add_argument("--est", type=Path, required=True)
-    ap.add_argument("--lpips-device", type=str, default="cpu")
+    ap.add_argument("--lpips-device", type=str, default="cuda")
     args = ap.parse_args(argv)
     scores = (
         evaluate_video_pair(args.ref, args.est, lpips_device=args.lpips_device)

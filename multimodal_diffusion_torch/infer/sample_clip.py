@@ -29,7 +29,7 @@ from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
 from ..train.checkpoint import (CheckpointManager, cast_params_bf16, checkpoint_format,
                                 jax_params_only, params_only_tree)
 from ..train.orbax_reader import read_orbax_step
-from ..utils.convert import load_jax_params
+from ..utils.convert import jax_params_to_state_dict, load_jax_params
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
 from ..utils.reference_checkpoint import reference_state_dict
 from .ddim import sampler_from_config
@@ -62,6 +62,25 @@ def checkpoint_location(ckpt) -> Optional[Path]:
     if step is None or not (mgr.dir / str(step)).is_dir():
         return None
     return mgr.dir / str(step)
+
+
+def latest_state_dict(ckpt_dir) -> Optional[Dict[str, torch.Tensor]]:
+    """The params of the latest step under `ckpt_dir` (the port's or the JAX
+    package's orbax format) as the port's state_dict, or None when the
+    directory is missing or holds no step."""
+    where = checkpoint_location(ckpt_dir)
+    if where is None or where.is_file():
+        return None
+    fmt = checkpoint_format(where)
+    if fmt == "port":
+        sd = CheckpointManager(where.parent).restore(int(where.name))["params"]
+    elif fmt == "jax":
+        sd = jax_params_to_state_dict(read_orbax_step(where)["params"])
+    else:
+        raise FileNotFoundError(f"{where} holds neither the port's params.pt nor an orbax "
+                                f"checkpoint (default/_METADATA)")
+    print(f"[ckpt] restored step {where.name} from {where.parent} ({fmt})")
+    return sd
 
 
 def checkpoint_state_dict(cfg: Dict, model: AVDiffusionModel,

@@ -17,42 +17,22 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Union
 
 import torch
 
 from ..models.diffusion import init_weights
 from ..models.latent_text2image import Text2ImageConfig, Text2ImageModel, sample_images
-from ..train.checkpoint import CheckpointManager, cast_params_bf16, checkpoint_format
-from ..train.orbax_reader import read_orbax_step
-from ..utils.convert import jax_params_to_state_dict
+from ..train.checkpoint import cast_params_bf16
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
-from .sample_clip import checkpoint_location
-
-
-def t2i_state_dict(cfg: Dict) -> Optional[Dict[str, torch.Tensor]]:
-    """The params of the latest checkpoint under paths.ckpt_dir (either
-    format) as the port's state_dict, or None when there is none."""
-    ckpt_dir = (cfg.get("paths", {}) or {}).get("ckpt_dir")
-    where = checkpoint_location(ckpt_dir) if ckpt_dir else None
-    if where is None or where.is_file():
-        return None
-    fmt = checkpoint_format(where)
-    if fmt == "port":
-        sd = CheckpointManager(where.parent).restore(int(where.name))["params"]
-    elif fmt == "jax":
-        sd = jax_params_to_state_dict(read_orbax_step(where)["params"])
-    else:
-        raise FileNotFoundError(f"{where} holds neither the port's params.pt nor an orbax "
-                                f"checkpoint (default/_METADATA)")
-    print(f"[ckpt] restored step {where.name} from {where.parent} ({fmt})")
-    return sd
+from .sample_clip import latest_state_dict
 
 
 def build_t2i(cfg: Dict, device: Union[str, torch.device] = "cuda",
               bf16_params: bool = False) -> Text2ImageModel:
     """The config's Text2ImageModel in eval mode on `device`, with the
-    weights of ``t2i_state_dict`` (strict), else a random init seeded by
+    weights of the latest step under paths.ckpt_dir (``latest_state_dict``,
+    strict), else a random init seeded by
     cfg['seed']; with `bf16_params` and bf16 compute, the fp32 weights cast
     to bf16 once (``cast_params_bf16``, as ``bench.py``'s t2i task does)."""
     dev = resolve_device(device)
@@ -60,7 +40,8 @@ def build_t2i(cfg: Dict, device: Union[str, torch.device] = "cuda",
     torch.backends.cudnn.allow_tf32 = False
     dtype = compute_dtype_from_config(cfg)
     model = Text2ImageModel(Text2ImageConfig.from_config(cfg, dtype=dtype))
-    sd = t2i_state_dict(cfg)
+    ckpt_dir = (cfg.get("paths", {}) or {}).get("ckpt_dir")
+    sd = latest_state_dict(ckpt_dir) if ckpt_dir else None
     if sd is None:
         print("[info] no checkpoint; sampling with random weights")
         init_weights(model, torch.Generator().manual_seed(int(cfg.get("seed", 0))))

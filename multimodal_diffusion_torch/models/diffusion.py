@@ -81,7 +81,8 @@ class AVDiffusionConfig:
     dtype: Any = torch.float32
 
     @classmethod
-    def from_config(cls, cfg: Dict, dtype: Any = torch.float32) -> "AVDiffusionConfig":
+    def from_config(cls, cfg: Dict, dtype: Any = torch.float32,
+                    remat: bool = False) -> "AVDiffusionConfig":
         mouth = (cfg.get("conditioning", {}) or {}).get("mouth_crop", {}) or {}
         mtube = mouth.get("tube", {}) or {}
         par = cfg.get("parallel", {}) or {}
@@ -101,7 +102,7 @@ class AVDiffusionConfig:
             chunk=(int(chunk["length"]), int(chunk["stride"])),
             vae=VideoVAEConfig.from_dict(cfg["video"], dtype=dtype),
             codec=AudioCodecConfig.from_dict(cfg["audio"], dtype=dtype),
-            core=MMDiTConfig.from_dict(cfg["model"]["core"], dtype=dtype),
+            core=MMDiTConfig.from_dict(cfg["model"]["core"], dtype=dtype, remat=remat),
             head_hidden=int(heads["video"]["hidden_dim"]),
             head_num_layers=int(heads["video"].get("num_layers", 2)),
             head_dropout=float(cfg["model"]["core"].get("dropout", 0.1)),

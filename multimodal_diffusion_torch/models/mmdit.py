@@ -10,6 +10,13 @@ Dropout (residual, MLP, token and attention-probability dropout) is on under
 ``torch.Generator`` that ``set_dropout_generator`` hands to every dropout
 module; a training-mode dropout without one raises (no global RNG).
 
+With ``remat`` (``parallel.remat_core``), a training pass with grad enabled
+runs each block under ``torch.utils.checkpoint``: its activations are
+recomputed in the backward pass (the flash forward kernel runs again there)
+instead of kept. The dropout generators' state is saved before each block and
+set again for its recompute, so the recomputed masks are the forward's and
+the draws after the step are unchanged.
+
 Under ``quant: "int8"`` the four hot projections (qkv, attention out, fc1,
 fc2) run W8A8 (``ops/quant.py``) on eval-mode passes, the JAX package's
 deterministic ones; a training pass is exactly the unquantized program.
@@ -23,6 +30,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha_reference, multi_head_attention, padding_bias
 from ..ops.quant import Int8Weight, int8_linear
@@ -228,7 +236,7 @@ class Block(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class MMDiTConfig:
     """The JAX MMDiTConfig's fields that the port reads (the parallelism
-    fields are not ported)."""
+    fields other than ``remat`` are not ported)."""
 
     d_model: int = 1024
     n_layers: int = 16
@@ -246,6 +254,9 @@ class MMDiTConfig:
     seq_multiple: int = 1
     # "int8": W8A8 hot projections on eval-mode passes (ops/quant.py)
     quant: str = "none"
+    # recompute each block's activations in the backward pass of a training
+    # pass (parallel.remat_core)
+    remat: bool = False
 
     @classmethod
     def from_dict(cls, d: dict, **overrides) -> "MMDiTConfig":
@@ -253,6 +264,35 @@ class MMDiTConfig:
         kw = {k: v for k, v in d.items() if k in known}
         kw.update(overrides)
         return cls(**kw)
+
+
+def remat_block(blk: nn.Module, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
+                use_kernel: Optional[bool]) -> torch.Tensor:
+    """blk(x, ...) under non-reentrant activation checkpointing. The state of
+    each generator its dropouts draw from is saved now; the recompute in the
+    backward pass starts from it (the same masks as this forward) and puts
+    back afterwards the state it found. torch's own preserve_rng_state only
+    covers the global generators, which the port never draws from."""
+    gens = list({id(m.generator): m.generator for m in blk.modules()
+                 if isinstance(m, Dropout) and m.rate > 0.0 and m.generator is not None
+                 }.values())
+    saved = [g.get_state() for g in gens]
+    calls = [0]
+
+    def run(x, key_padding_mask):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward pass itself
+            return blk(x, key_padding_mask, use_kernel)
+        found = [g.get_state() for g in gens]
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+        try:
+            return blk(x, key_padding_mask, use_kernel)
+        finally:
+            for g, s in zip(gens, found):
+                g.set_state(s)
+
+    return checkpoint(run, x, key_padding_mask, use_reentrant=False, preserve_rng_state=False)
 
 
 class MMDiT(nn.Module):
@@ -284,8 +324,12 @@ class MMDiT(nn.Module):
             if key_padding_mask is None:
                 key_padding_mask = torch.zeros((B, N), dtype=torch.bool, device=x.device)
             key_padding_mask = F.pad(key_padding_mask, (0, pad_n), value=True)
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, key_padding_mask, use_kernel)
+            if remat:
+                x = remat_block(blk, x, key_padding_mask, use_kernel)
+            else:
+                x = blk(x, key_padding_mask, use_kernel)
         if pad_n:
             x = x[:, :N]
         return self.norm(x)

@@ -18,7 +18,12 @@ at latent resolution:
 Channels-first [B, C, T, H, W] at the boundary and in the convs; a tubelet's
 vector is ordered (t, h, w, C) with C last, as the JAX package builds it from
 its channels-last layout, so ``patch_embed``/``unpatch_proj`` weights carry
-across. The variational VAE, which no config uses, is not ported.
+across.
+
+``variational: true`` (no config uses it) replaces ``to_lat`` with the 1x1
+convs ``to_mu`` and ``to_logv``: ``encode_with_kld`` returns mu, or
+mu + eps * exp(logv / 2) when it is given noise or a generator, and the fp32
+KL mean; ``forward`` returns (x_hat, z, kld).
 """
 
 from __future__ import annotations
@@ -120,8 +125,6 @@ class VideoVAE(nn.Module):
         super().__init__()
         if cfg.arch not in ("conv", "patch"):
             raise ValueError(f"VideoVAE arch must be 'conv'|'patch', got {cfg.arch!r}")
-        if cfg.variational:
-            raise NotImplementedError("the variational VideoVAE is not ported")
         self.cfg = cfg
         c, dt = cfg, cfg.dtype
         patch = c.arch == "patch"
@@ -135,7 +138,12 @@ class VideoVAE(nn.Module):
         self.enc = nn.ModuleList(
             ConvBlock3D(enc_in if i == 0 else enc_width, enc_width, dt)
             for i in range(c.enc_blocks))
-        self.to_lat = Conv3d(enc_width if c.enc_blocks else enc_in, c.lat_ch, 1, dt)
+        lat_in = enc_width if c.enc_blocks else enc_in
+        if c.variational:
+            self.to_mu = Conv3d(lat_in, c.lat_ch, 1, dt)
+            self.to_logv = Conv3d(lat_in, c.lat_ch, 1, dt)
+        else:
+            self.to_lat = Conv3d(lat_in, c.lat_ch, 1, dt)
         self.from_lat = Conv3d(c.lat_ch, dec_width, 1, dt)
         self.dec = nn.ModuleList(
             ConvBlock3D(dec_width, dec_width, dt) for _ in range(c.dec_blocks))
@@ -176,8 +184,40 @@ class VideoVAE(nn.Module):
         t0, h0, w0 = (T - T2) // 2, (H - H2) // 2, (W - W2) // 2
         return x[:, :, t0:t0 + T2, h0:h0 + H2, w0:w0 + W2]
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_with_kld(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x: [B, 3, T, H, W] -> (z [B, Cv, T', H', W'], kld | None).
+
+        Variational: z = mu + noise * exp(logv / 2), the noise `noise` or
+        drawn from `generator` ([B, Cv, T', H', W'], cast to mu's dtype); with
+        neither (eval), z = mu. kld = 0.5 mean(mu^2 + exp(logv) - 1 - logv)
+        in fp32."""
+        h = self._encode_features(x)
+        if not self.cfg.variational:
+            return self.to_lat(h), None
+        mu, logv = self.to_mu(h), self.to_logv(h)
+        if noise is None and generator is not None:
+            noise = torch.randn(mu.shape, generator=generator, device=mu.device)
+        z = mu if noise is None else mu + noise.to(mu.dtype) * torch.exp(0.5 * logv)
+        lv = logv.float()
+        kld = 0.5 * torch.mean(-1.0 - lv + mu.float() ** 2 + torch.exp(lv))
+        return z, kld
+
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, 3, T, H, W] -> z: [B, Cv, T', H', W']."""
+        return self.encode_with_kld(x, generator, noise)[0]
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """Full autoencode: (x_hat, z, kld)."""
+        z, kld = self.encode_with_kld(x, generator, noise)
+        return self.decode(z), z, kld
+
+    def _encode_features(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's features at latent resolution, before the latent
+        projection."""
         c = self.cfg
         h = self._center_crop(x).to(c.dtype)
         if c.arch == "patch":
@@ -190,7 +230,7 @@ class VideoVAE(nn.Module):
             for blk in self.enc:
                 h = blk(h)
             h = F.avg_pool3d(h, kernel_size=(c.t_down, c.s_down, c.s_down))
-        return self.to_lat(h)
+        return h
 
     def decode(self, z: torch.Tensor,
                out_size: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:

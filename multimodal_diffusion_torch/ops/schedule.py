@@ -106,6 +106,58 @@ def prediction_target(x0: torch.Tensor, eps: torch.Tensor, t: torch.Tensor,
     raise ValueError(f"param must be 'eps'|'x0'|'v', got {param!r}")
 
 
+def ddpm_step(
+    x_t: torch.Tensor,
+    t: torch.Tensor,
+    eps_hat: torch.Tensor,
+    betas: torch.Tensor,
+    alpha_bar: torch.Tensor,
+    noise: torch.Tensor,
+    *,
+    posterior_variance: bool = True,
+    clip_x0: Optional[Tuple[float, float]] = None,
+) -> torch.Tensor:
+    """One ancestral DDPM step x_{t-1} <- x_t (Ho et al. 2020, eq. 11):
+
+      mu = (x_t - beta_t / sqrt(1 - a_bar_t) * eps_hat) / sqrt(alpha_t)
+      sigma^2 = (1 - a_bar_{t-1}) / (1 - a_bar_t) * beta_t
+                (or beta_t when posterior_variance is False)
+      x_{t-1} = mu + sigma * z   (no noise at t == 0)
+
+    With `clip_x0` the mean is the posterior mean through the clipped x0
+    estimate (Ho et al. eq. 7). t [B] int >= 0; `noise` is z, drawn by the
+    caller. fp32 math, cast back to x_t.dtype."""
+    xdtype = x_t.dtype
+    x_t = x_t.to(torch.float32)
+    eps_hat = eps_hat.to(torch.float32)
+    nd = x_t.ndim
+
+    beta_t = _bcast_gather(betas, t, nd)
+    a_t = 1.0 - beta_t
+    ab_t = _bcast_gather(alpha_bar, t, nd)
+    ab_prev_raw = _bcast_gather(alpha_bar, torch.clamp(t - 1, min=0), nd)
+    is_t0 = (t == 0).reshape((-1,) + (1,) * (nd - 1))
+    ab_prev = torch.where(is_t0, torch.ones_like(ab_prev_raw), ab_prev_raw)
+
+    if clip_x0 is not None:
+        x0 = x_t - torch.sqrt(torch.clamp(1.0 - ab_t, min=0.0)) * eps_hat
+        x0 = x0 / torch.sqrt(torch.clamp(ab_t, min=1e-20))
+        x0 = torch.clamp(x0, clip_x0[0], clip_x0[1])
+        denom = torch.clamp(1.0 - ab_t, min=1e-20)
+        coef_x0 = torch.sqrt(ab_prev) * beta_t / denom
+        coef_xt = torch.sqrt(a_t) * (1.0 - ab_prev) / denom
+        mean = coef_x0 * x0 + coef_xt * x_t
+    else:
+        mean = x_t - beta_t / torch.sqrt(torch.clamp(1.0 - ab_t, min=1e-20)) * eps_hat
+        mean = mean / torch.sqrt(a_t)
+    if posterior_variance:
+        var = (1.0 - ab_prev) / torch.clamp(1.0 - ab_t, min=1e-20) * beta_t
+    else:
+        var = beta_t
+    sigma = torch.where(is_t0, torch.zeros_like(var), torch.sqrt(torch.clamp(var, min=0.0)))
+    return (mean + sigma * noise.to(torch.float32)).to(xdtype)
+
+
 def to_x0_pred(x_t: torch.Tensor, pred: torch.Tensor, a_t: torch.Tensor,
                param: str = "eps") -> torch.Tensor:
     """Model prediction under `param` ('eps'|'x0'|'v') -> denoised estimate x0."""

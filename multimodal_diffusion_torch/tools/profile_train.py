@@ -49,7 +49,7 @@ from ..utils.io import builtin_config
 
 
 def train_workload(clips: int = 8, seed: int = 0, config: str = "mvp", records=None,
-                   resident: bool = True, uint8: bool = False):
+                   resident: bool = True, uint8: bool = False, remat: bool = False):
     """The trainer of the built-in config `config` on the card and the
     bench.py synthetic batch (uniform video [clips, 3, T, H, W] and audio
     [clips, 1, L] from np.random.default_rng(0), has_* all true) on the card,
@@ -60,9 +60,12 @@ def train_workload(clips: int = 8, seed: int = 0, config: str = "mvp", records=N
     directory of .avrec shards) the steps take the train_joint CLI's
     batches from them instead: resident on the card, or streamed. With
     `uint8` the fixed batch's video is the same frames as uint8 [clips, T,
-    H, W, 3] (the layout those batches have), normalised in the step."""
+    H, W, 3] (the layout those batches have), normalised in the step. With
+    `remat` the core's blocks recompute their activations in the backward
+    pass (parallel.remat_core)."""
     cfg = builtin_config(config)
     cfg["data"]["batch_size"] = clips
+    cfg.setdefault("parallel", {})["remat_core"] = remat
     cfg["training"]["log_every"] = 1
     bundle = create_trainer(cfg, device="cuda", seed=seed)
     rng = np.random.default_rng(0)

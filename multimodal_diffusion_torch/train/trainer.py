@@ -15,9 +15,10 @@ trainer's ``torch.Generator``; the step body takes them as arguments, so a
 test hands both frameworks the same numpy draws. Dropout draws from the same
 generator. Nothing uses torch's global RNG.
 
-``parallel.model > 1`` and ``parallel.remat_core`` raise
-``NotImplementedError`` until their slices. The JAX loop's MFU logging waits
-for a profiling module calibrated on the H100.
+``parallel.remat_core`` recomputes each core block's activations in the
+backward pass (``models/mmdit.py::remat_block``); ``parallel.model > 1``
+raises ``NotImplementedError`` until its slice. ``run_training`` logs the
+denoiser's MFU (``utils/profiling.py``) with the JAX loop's formula.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ from ..datasets.loader import copy_to_device, device_prefetch
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
 from ..models.mmdit import set_dropout_generator
 from ..ops import schedule as S
+from ..ops.tokenize import num_chunks
 from ..utils.io import compute_dtype_from_config, latent_shapes_from_config, resolve_device
+from ..utils.profiling import calib_tflops, device_peak_flops, flops_mmdit_forward
 from .losses import (alignment_loss, mse_targets_only, reconstruction_loss,
                      sync_contrastive_loss)
 from .mask_schedule import Any2AnySchedule
@@ -460,16 +463,13 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     par = cfg.get("parallel", {}) or {}
     if int(par.get("model", 1) or 1) > 1:
         raise NotImplementedError("parallel.model > 1 (tensor parallelism) is not ported yet")
-    if bool(par.get("remat_core", False)):
-        raise NotImplementedError("parallel.remat_core (recomputing the core's blocks in "
-                                  "the backward pass) is not ported yet")
     ema_cfg = t_cfg.get("ema", {"use_ema": True, "decay": 0.999}) or {}
     ema_scope = str(ema_cfg.get("scope", "core"))
     if ema_scope not in ("core", "all"):
         raise ValueError(f"training.ema.scope must be core|all, got {ema_scope!r}")
 
     model = AVDiffusionModel(AVDiffusionConfig.from_config(
-        cfg, dtype=compute_dtype_from_config(cfg)))
+        cfg, dtype=compute_dtype_from_config(cfg), remat=bool(par.get("remat_core", False))))
     if (sync_source == "mouth" and float(t_cfg.get("sync_loss_weight", 0.0)) > 0.0
             and not model.cfg.mouth_enabled):
         raise ValueError("training.sync_loss_source: mouth requires "
@@ -536,7 +536,12 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     interval's mean metrics, steps_per_sec and clips_per_sec (one host sync
     per interval; with training.recon_every = K > 1 the steps without the
     decode count as loss_recon 0, so the logged loss_recon, and its share of
-    the logged loss, is 1/K of a reconstruction step's); checkpoint_fn(step, state) every `ckpt_every`;
+    the logged loss, is 1/K of a reconstruction step's), and the denoiser's
+    MFU as the JAX loop computes it: ``denoiser_mfu`` = 3 B
+    flops_mmdit_forward(nv + na) per step time over the device's peak, and
+    on a card ``denoiser_mfu_vs_calib`` against ``calib_tflops()``, measured
+    once at the start of the call (nv + na leaves out the mouth-crop tokens
+    the core also runs, as the JAX formula does); checkpoint_fn(step, state) every `ckpt_every`;
     val_fn(step, state) every `val_every`; `should_stop()` is polled after
     every step."""
     t_cfg = cfg["training"]
@@ -565,6 +570,19 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
             batch = dict(batch, audio=np.zeros(bundle.latent_shapes["audio"], np.float32))
         return copy_to_device(batch, bundle.device), 1.0 if target == "video" else 0.0
 
+    # MFU accounting: fwd + bwd of the denoiser ~ 3x the forward FLOPs at
+    # the video and audio token count
+    core = bundle.model.cfg.core
+    tube = cfg["tokenizer"]["video"]["tube"]
+    chunk = cfg["tokenizer"]["audio"]["chunk"]
+    zv, za = bundle.latent_shapes["z_video"], bundle.latent_shapes["z_audio"]
+    nv = (zv[2] // int(tube["t"])) * (zv[3] // int(tube["h"])) * (zv[4] // int(tube["w"]))
+    na = num_chunks(za[2], int(chunk["length"]), int(chunk["stride"]))
+    denoiser_flops = 3.0 * B * flops_mmdit_forward(nv + na, core.d_model, core.n_layers,
+                                                   core.mlp_ratio)
+    peak = device_peak_flops(bundle.device)  # an unknown card raises here, before a step
+    calib = calib_tflops() if bundle.device.type == "cuda" else None
+
     pending: List[Dict[str, torch.Tensor]] = []
     t_last = time.perf_counter()
     depth = int(data_cfg.get("prefetch_factor", 2) or 2)
@@ -582,7 +600,10 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
                                     for m in pending]).mean(dim=0).tolist()
                 now = time.perf_counter()
                 dt = (now - t_last) / len(pending)
-                agg = dict(zip(keys, vals), steps_per_sec=1.0 / dt, clips_per_sec=B / dt)
+                agg = dict(zip(keys, vals), steps_per_sec=1.0 / dt, clips_per_sec=B / dt,
+                           denoiser_mfu=denoiser_flops / dt / peak)
+                if calib:
+                    agg["denoiser_mfu_vs_calib"] = denoiser_flops / dt / 1e12 / calib
                 t_last = now
                 log_fn(step, agg)
                 pending = []

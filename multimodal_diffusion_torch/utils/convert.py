@@ -21,7 +21,9 @@ entries (``block_3`` -> ``blocks.3``, ``enc_0`` -> ``enc.0``, ``shared_1`` ->
 need no rule of their own: ``vid_vae/patch_embed`` and ``unpatch_proj`` are
 Dense kernels, ``patch_norm`` a norm, ``adapt_m/proj`` an adapter like its
 siblings, ``embed/pos_m`` three position tables, and the modality table
-simply has a third row.
+simply has a third row. Nor do PixelDiT's (``adapter/proj``, ``pos/table``,
+``core``, ``head/block_0``, ``head/out``) or the variational VideoVAE's
+``to_mu`` / ``to_logv`` (1x1 Conv3d kernels).
 
 ``state_dict_to_jax_params`` is the exact inverse (bit for bit): the port's
 keys back to flax's names (a norm is ``GroupNorm`` inside the VideoVAE's

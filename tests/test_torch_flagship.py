@@ -118,10 +118,13 @@ def test_conv_vae_decode_out_size_matches_jax():
 
 
 def test_variational_vae_still_raises():
+    """The variational VideoVAE is ported now (tests/test_torch_remat_profiling.py
+    holds it against JAX): it builds to_mu / to_logv in place of to_lat. An
+    unknown arch still raises."""
     from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
 
-    with pytest.raises(NotImplementedError):
-        VideoVAE(VideoVAEConfig(variational=True))
+    vae = VideoVAE(VideoVAEConfig(variational=True))
+    assert hasattr(vae, "to_mu") and hasattr(vae, "to_logv") and not hasattr(vae, "to_lat")
     with pytest.raises(ValueError, match="conv'|'patch"):
         VideoVAE(VideoVAEConfig(arch="unet"))
 

@@ -636,3 +636,77 @@ def test_int8_core_on_the_card_and_its_guided_gradient(cuda):
     (g,) = torch.autograd.grad(core(xg).float().square().sum(), xg)
     assert torch.isfinite(g).all() and float(g.abs().max()) > 0
     assert all(p.grad is None for p in core.parameters())
+
+
+# the pixel DDPM family at configs/pixel32.yaml width (6 heads of 64, N = 64
+# = one 64-row tile): the sampler's forward at B = 16, the train step's
+# forward and backward pair at B = 128; unmasked, bf16
+PIXEL_CASES = [((16, 6, 64, 64), False), ((128, 6, 64, 64), True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,backward", PIXEL_CASES, ids=lambda c: str(c))
+def test_flash_kernels_at_the_pixel_shapes(cuda, shape, backward):
+    """bf16, the forward (and at the train step's shape the backward pair)
+    against their plain versions, and bit-identical from call to call."""
+    q, k, v, _ = _inputs(cuda, shape, torch.bfloat16, 0, seed=40)
+    out, lse = t_fa.flash_forward(q, k, v)
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, t_fa.flash_forward(q, k, v)[0])
+    if backward:
+        dout = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(41),
+                           device=cuda).to(torch.bfloat16)
+        grads = t_fa.flash_backward(q, k, v, out, lse, dout)
+        refs = t_fa.flash_backward_reference(q, k, v, out, lse, dout)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            assert _rel_err(g, r) <= BWD_TOL[torch.bfloat16], name
+        again = t_fa.flash_backward(q, k, v, out, lse, dout)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_pixel_dit_and_remat_through_the_kernels(cuda):
+    """A narrow bf16 PixelDiT (2 layers, 6 heads of 64) on the card: a
+    forward with the kernel launches it once a layer and agrees with dense
+    attention within 1.5e-2 of the magnitude; a training pass under remat
+    (a narrow MMDiT with dropout 0.1) launches the forward twice a layer and
+    gives the bits of the pass without it."""
+    from multimodal_diffusion_torch.models.diffusion import init_weights
+    from multimodal_diffusion_torch.models.image_diffusion import PixelDiT, PixelDiTConfig
+    from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig, set_dropout_generator
+
+    dt = torch.bfloat16
+    core = MMDiTConfig(d_model=384, n_layers=2, n_heads=6, dropout=0.0, dtype=dt)
+    model = PixelDiT(PixelDiTConfig(width=384, core=core, dtype=dt))
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn((4, 3, 32, 32), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    with torch.inference_mode():
+        before = t_fa.flash_forward.launches
+        a = model(x, t, use_kernel=True)
+        assert t_fa.flash_forward.launches - before == 2
+        b = model(x, t, use_kernel=False)
+    assert float((a.float() - b.float()).abs().max()) <= 1.5e-2 * float(b.float().abs().max())
+
+    grads, launches = {}, {}
+    for remat in (False, True):
+        net = MMDiT(MMDiTConfig(d_model=256, n_layers=3, n_heads=4, dropout=0.1, dtype=dt,
+                                remat=remat))
+        init_weights(net, torch.Generator().manual_seed(2))
+        net = net.to(cuda).train()
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        set_dropout_generator(net, gen)
+        h = torch.randn((4, 64, 256), generator=torch.Generator(device=cuda).manual_seed(4),
+                        device=cuda)
+        before = t_fa.flash_forward.launches
+        loss = net(h).float().square().mean()
+        g = torch.autograd.grad(loss, list(net.parameters()))
+        launches[remat] = t_fa.flash_forward.launches - before
+        grads[remat] = (g, gen.get_state())
+    assert (launches[False], launches[True]) == (3, 6)
+    assert all(torch.equal(p, q) for p, q in zip(grads[True][0], grads[False][0]))
+    assert torch.equal(grads[True][1], grads[False][1])

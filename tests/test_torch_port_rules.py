@@ -148,23 +148,18 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 def test_unported_options_raise(monkeypatch):
     """Exactly these still raise NotImplementedError: parallel.context,
-    parallel.pipe, parallel.model > 1, parallel.remat_core, the variational
-    VAE and train_joint under WORLD_SIZE > 1."""
-    from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
-
+    parallel.pipe, parallel.model > 1 and train_joint under WORLD_SIZE > 1
+    (parallel.remat_core and the variational VAE are ported:
+    tests/test_torch_remat_profiling.py)."""
     cfg = shrunk_cfg()
     for key in ("context", "pipe"):
         with pytest.raises(NotImplementedError):
             AVDiffusionConfig.from_config({**cfg, "parallel": {key: 2}})
     with pytest.raises(NotImplementedError):
         create_trainer({**cfg, "parallel": {"model": 2}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat_core"):
-        create_trainer({**cfg, "parallel": {"remat_core": True}}, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
         train_joint.main(["--config", str(REPO / "configs" / "mvp.yaml"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        VideoVAE(VideoVAEConfig(variational=True))
 
 
 def test_orbax_checkpoint_restores(tmp_path):

@@ -271,6 +271,27 @@ def test_copied_function_matches_jax(name):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, equal_nan=True)
 
 
+def test_lpips_runs_on_the_device_it_is_asked_for(tmp_path, monkeypatch):
+    """LPIPS runs on CUDA unless the caller asks for the CPU, with no CPU
+    fallback: without a card, "cuda" raises in _lpips_model, in
+    evaluate_video_pair's default and in the CLI's; "cpu" runs (nan without
+    the optional lpips package, as the JAX package gives)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    TVIO.write_frames(FRAMES, tmp_path / "a")
+    TVIO.write_frames(FRAMES2, tmp_path / "b")
+    for call in (lambda: TV._lpips_model("cuda"),
+                 lambda: TV.evaluate_video_pair(tmp_path / "a", tmp_path / "b"),
+                 lambda: TV.main(["--ref", str(tmp_path / "a"), "--est", str(tmp_path / "b")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    cpu = TV.evaluate_video_pair(tmp_path / "a", tmp_path / "b", lpips_device="cpu")
+    assert np.isfinite(cpu["psnr_mean"])
+    if TV.lpips_lib is None:
+        assert TV._lpips_model("cpu") is None and np.isnan(cpu["lpips_mean"])
+    else:
+        assert next(TV._lpips_model("cpu").parameters()).device.type == "cpu"
+
+
 def test_file_entry_points_match_jax(tmp_path):
     """The wav and frame-directory round trips and the file-level
     evaluators (evaluate_pair, evaluate_video_pair / _only, read_video_file)."""
@@ -290,7 +311,7 @@ def test_file_entry_points_match_jax(tmp_path):
     _equal(TVIO.load_frames_dir(tmp_path / "a"), JVIO.load_frames_dir(tmp_path / "a"))
     _equal(TVIO.read_video_file(tmp_path / "a.mp4", (16, 16)),
            JVIO.read_video_file(tmp_path / "a.mp4", (16, 16)))
-    for got, want in ((TV.evaluate_video_pair(tmp_path / "a", tmp_path / "b"),
+    for got, want in ((TV.evaluate_video_pair(tmp_path / "a", tmp_path / "b", lpips_device="cpu"),
                        JV.evaluate_video_pair(tmp_path / "a", tmp_path / "b")),
                       (TV.evaluate_video_only(tmp_path / "b"),
                        JV.evaluate_video_only(tmp_path / "b"))):
