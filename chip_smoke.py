@@ -192,6 +192,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                largest magnitude, the generator left in the same state, and
                a lower peak under remat (the step's own peak is the
                optimizer's update, which remat does not touch).
+ 22. multi_rank — two ranks on this one card, each its own process, both on
+               cuda:0 over gloo (NCCL takes one rank per device; gloo moves
+               all but sums and broadcasts through host memory, and the two
+               ranks share the SMs: the times are no scaling figures). In one
+               spawned pair: the flash ring alone (ops/ring_attention.py,
+               impl flash) at [8, 8, 211, 128] a rank, 421 tokens padded to
+               422 with the pad key masked, forward and backward against
+               flash_attention on the whole [8, 8, 422, 128] here (output
+               within 2e-2, grads within GRAD_REL_TOL, both relative to the
+               largest magnitude), two calls bit-identical, exactly 2
+               launches of each kernel a call, its ms beside the whole call's;
+               the kernels alone at a block's shape (rank 0's queries, rank
+               1's keys); one flagship train step (B=8 global, bf16, the
+               seeded init, shared batch and draws, audio the target) on each
+               of data 2, model 2, context 2 (context_flash) and pipe 2 (2
+               microbatches, dropout 0 as the JAX package requires) against
+               the one-process step on this card (context's with
+               seq_multiple 2, so both draw the dropout masks at 422 tokens):
+               loss, grad norm and four gradients within SPEC8_GRAD_REL_TOL,
+               and exactly MULTI_RANK_LAUNCHES launches of each kernel per
+               rank; a 2-step v2a flagship batch with the batch over data 2
+               and one under context 2 (spec8_v2a's N(0, 0.02) weights),
+               finite, in range and within 2e-2 of one process, and under
+               context 2 the sampler's denoiser forward (spec8_denoise)
+               within SPEC8_DENOISE_REL_TOL of one process; then
+               tools/dryrun_multichip.py at n = 4 on this card (gloo; the
+               shrunk core with 2 heads of 32, the kernels' smallest head
+               dim).
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -205,6 +233,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -2634,6 +2663,381 @@ def spec8_remat_phase(fa, smi):
             for k in runs[True]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# multi_rank: the layouts over ranks, two ranks sharing this one card
+# ---------------------------------------------------------------------------
+
+# two ranks on the one card, both on cuda:0, over gloo: NCCL takes one rank
+# per device (see PERF.md for its error), and gloo moves the bytes of every
+# transfer but a sum or a broadcast through host memory. Both ranks share the
+# card's SMs, so the phase's times are no scaling figures.
+MULTI_RANK_WORLD, MULTI_RANK_BACKEND = 2, "gloo"
+MULTI_RANK_CLIPS, MULTI_RANK_SAMPLE_STEPS = 8, 2
+# the flash ring alone: the flagship train step's attention, [8, 8, 422, 128]
+# (421 tokens padded to 422 by lcm(seq_multiple, 2), the pad key masked),
+# [8, 8, 211, 128] a rank
+RING_SHAPE = (8, 8, 422, 128)
+# (layout, the config overlay of the layout and of its one-process
+# reference): context pads N to 422, so its reference pads too
+# (seq_multiple 2: the same global dropout draws); pipelined training needs
+# dropout 0, as the JAX package's
+MULTI_RANK_LAYOUTS = {
+    "data2": ({"data": 2}, {}),
+    "model2": ({"data": 1, "model": 2}, {}),
+    "context2": ({"data": 1, "context": 2, "context_flash": True},
+                 {"model": {"core": {"seq_multiple": 2}}}),
+    "pipe2": ({"data": 1, "pipe": 2, "pipe_microbatches": 2},
+              {"model": {"core": {"dropout": 0.0}}}),
+}
+# the exact launches of one flagship step (16 layers, no remat, no decode)
+# for each of the three kernels, per rank: data 2 and model 2 launch what
+# one process does (each rank its rows or its heads, one call per layer);
+# context 2 runs the ring's 2 steps per layer, forward and backward; pipe 2
+# runs each rank's 16 / 2 = 8 blocks on each of 2 microbatches
+MULTI_RANK_LAUNCHES = {"data2": 16, "model2": 16, "context2": 32, "pipe2": 16}
+# the sampled wav over data 2 and under context 2 against one process, max
+# |diff| / max |ref|: the flagship forward's 2e-2, on spec8_v2a's N(0, 0.02)
+# weights. Under context 2 the core's arithmetic differs from one process's
+# as dense attention's from the kernel's (other sums, the ring's merge), so
+# its denoiser forward (spec8_denoise) is also held to SPEC8_DENOISE_REL_TOL.
+# On the trainer's init weights the sampler's CFG amplified such a
+# difference to 0.31 of the wav (see PERF.md): those weights are not the
+# ones these tolerances were set on.
+MULTI_RANK_SAMPLE_REL_TOL = 2e-2
+# the names whose gradients the ranks hand back for the check (all qkv
+# weights would be 200 MB a layout)
+MULTI_RANK_GRADS = ("core.blocks.0.attn.qkv.weight", "core.blocks.15.attn.qkv.weight",
+                    "core.blocks.7.mlp.fc1.weight", "adapt_v.proj.weight")
+
+
+def multi_rank_config(layout: dict, overlay: dict) -> dict:
+    from multimodal_diffusion_torch.utils.io import deep_update, specificity8_config
+
+    cfg = deep_update(specificity8_config(), overlay)
+    cfg["parallel"] = {**cfg.get("parallel", {}), **layout}
+    return cfg
+
+
+def multi_rank_inputs():
+    """The global batch, step draws and prompt frames every run of the
+    phase shares (numpy, from seeds)."""
+    import numpy as np
+
+    from multimodal_diffusion_torch.utils.io import latent_shapes_from_config
+
+    cfg = multi_rank_config({}, {})
+    s = latent_shapes_from_config(cfg, MULTI_RANK_CLIPS)
+    rng = np.random.default_rng(11)
+    B = MULTI_RANK_CLIPS
+    batch = {"video": rng.uniform(0, 1, s["video"]).astype(np.float32),
+             "audio": rng.uniform(-1, 1, s["audio"]).astype(np.float32),
+             "has_video": np.ones(B, bool), "has_audio": np.ones(B, bool)}
+    draws = {"t_v": rng.integers(0, 1000, B), "t_a": rng.integers(0, 1000, B),
+             "noise_v": rng.standard_normal(s["z_video"]).astype(np.float32),
+             "noise_a": rng.standard_normal(s["z_audio"]).astype(np.float32),
+             "cfg_u": rng.uniform(0, 1, B).astype(np.float32),
+             "clean_u": rng.uniform(0, 1, B).astype(np.float32)}
+    T, H, W = s["video"][2:]
+    frames = rng.integers(0, 256, (B, T, H, W, 3), dtype=np.uint8)
+    return batch, draws, frames
+
+
+def multi_rank_step(fa, name: str, mesh=None) -> dict:
+    """One flagship train step of layout `name` (or its one-process
+    reference without `mesh`) on the card from the seeded init, the shared
+    batch and draws, audio the target: its metrics, the gradients of
+    MULTI_RANK_GRADS, the launches, ms of a second step, peak memory."""
+    import torch
+
+    from multimodal_diffusion_torch.train.trainer import create_trainer
+
+    layout, overlay = MULTI_RANK_LAYOUTS[name]
+    batch, draws, _ = multi_rank_inputs()
+    cfg = multi_rank_config(layout if mesh is not None else {}, overlay)
+    bundle = create_trainer(cfg, device="cuda", batch_size=MULTI_RANK_CLIPS, seed=0,
+                            mesh=mesh)
+    st = bundle.state
+    taken = {}
+    step = st.optimizer.step
+
+    def keep(grads):
+        taken.update({n: g.float().cpu().numpy() for n, g in zip(st.optimizer.names, grads)
+                      if n in MULTI_RANK_GRADS})
+        return step(grads)
+
+    st.optimizer.step = keep
+    d = {k: torch.as_tensor(v).cuda() for k, v in draws.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    metrics = bundle.train_step(st, batch, 0.0, d)
+    torch.cuda.synchronize()
+    launches = launch_counts(fa)
+    t0 = time.perf_counter()
+    bundle.train_step(st, batch, 0.0, d)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": taken,
+           "launches": launches, "step_ms": ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del bundle, st, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_rank_sample(mesh_kw, frames):
+    """A MULTI_RANK_SAMPLE_STEPS-step v2a flagship batch through
+    build_components + sample_one_direction on the mesh of `mesh_kw` (one
+    process without it), on spec8_v2a's seeded N(0, 0.02) weights: the wav
+    [B, L], and spec8_denoise's outputs (numpy) on that model."""
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_clip import (build_components,
+                                                              sample_one_direction)
+    from multimodal_diffusion_torch.parallel.mesh import make_mesh
+
+    cfg = multi_rank_config(mesh_kw or {}, {})
+    cfg["paths"] = {}
+    cfg["diffusion"]["audio"]["sampler_steps"] = MULTI_RANK_SAMPLE_STEPS
+    mesh = make_mesh(**mesh_kw) if mesh_kw else None
+    model = build_components(cfg, device="cuda", mesh=mesh if mesh_kw and
+                             mesh_kw.get("context", 1) > 1 else None)
+    gen = torch.Generator().manual_seed(0)  # spec8_v2a's N(0, 0.02) weights
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    out = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
+                               prompt_video=frames, device="cuda", mesh=mesh,
+                               generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        den = spec8_denoise(model)
+    den = {k: den[k].float().cpu().numpy() for k in SPEC8_DENOISE_REL_TOL}
+    del model
+    torch.cuda.empty_cache()
+    return out["audio"], den
+
+
+def ring_inputs():
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    q, k, v, dout = (rng.standard_normal(RING_SHAPE).astype(np.float32) for _ in range(4))
+    valid = np.ones((RING_SHAPE[0], RING_SHAPE[2]), bool)
+    valid[:, -1] = False  # the pad key of 421 -> 422
+    return q, k, v, dout, valid
+
+
+def multi_rank_body(rank: int, world: int) -> dict:
+    """What each of the two ranks runs, in one spawned pair: the flash ring
+    alone, one step of every layout, the two sampled batches. Returns its
+    results (numpy, floats) to the parent."""
+    import torch
+
+    from multimodal_diffusion_torch.ops import flash_attention as fa
+    from multimodal_diffusion_torch.ops.ring_attention import ring_attention_local
+    from multimodal_diffusion_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"rank": rank}
+    # the flash ring alone, this rank's [8, 8, 211, 128] shard
+    mesh = make_mesh(data=1, context=world)
+    group, members = mesh.group("context"), mesh.members("context")
+    q, k, v, dout, valid = ring_inputs()
+    n = RING_SHAPE[2] // world
+    cut = slice(rank * n, (rank + 1) * n)
+
+    def shard(a):
+        return torch.as_tensor(a[:, :, cut]).to("cuda", torch.bfloat16).contiguous()
+
+    ql, kl, vl, dl = (shard(a) for a in (q, k, v, dout))
+    vd = torch.as_tensor(valid[:, cut]).cuda().contiguous()
+
+    def ring_call():
+        leaves = [t.detach().clone().requires_grad_() for t in (ql, kl, vl)]
+        out = ring_attention_local(*leaves, group, members, vd, "flash")
+        out.backward(dl)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    first = ring_call()
+    reset_launch_counts(fa)
+    again = ring_call()
+    res["ring_launches"] = launch_counts(fa)
+    res["ring_bit_identical"] = all(torch.equal(a, b) for a, b in zip(first, again))
+    res["ring"] = [t.float().cpu().numpy() for t in first]
+    times = {"fwd": [], "fwd_bwd": []}
+    for _ in range(5):
+        for what in times:
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "fwd":
+                with torch.no_grad():
+                    ring_attention_local(ql, kl, vl, group, members, vd, "flash")
+            else:
+                ring_call()
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3)
+    res["ring_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    # one train step of each layout
+    from multimodal_diffusion_torch.parallel.mesh import make_mesh_from_config
+
+    res["steps"] = {}
+    for name, (layout, overlay) in MULTI_RANK_LAYOUTS.items():
+        mesh = make_mesh_from_config({"parallel": layout})
+        res["steps"][name] = multi_rank_step(fa, name, mesh)
+    _, _, frames = multi_rank_inputs()
+    res["sample_data2"] = multi_rank_sample({"data": 2}, frames)
+    res["sample_context2"] = multi_rank_sample({"data": 1, "context": 2}, frames)
+    return res
+
+
+def rel_err(got, ref) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(got, np.float32) - ref).max() / np.abs(ref).max())
+
+
+def multi_rank_phase(fa, cycles_per_s, smi):
+    """Two ranks on this card (gloo): the flash ring against flash_attention
+    on the whole sequence, one flagship train step of each layout against
+    the one-process step, the sampled batches against one process; then the
+    dry run at n = 4. Returns ({path: launches}, the ring's kernel cases)."""
+    import numpy as np
+    import torch
+
+    from multimodal_diffusion_torch.parallel.launch import run_ranks
+    from multimodal_diffusion_torch.tools.dryrun_multichip import dryrun_multichip
+
+    for name in fa.SOURCES:  # built once here, before the ranks load them
+        fa._library(name)
+    t_phase = time.perf_counter()
+    ranks = run_ranks(multi_rank_body, MULTI_RANK_WORLD, backend=MULTI_RANK_BACKEND,
+                      timeout=600, threads=4)
+    spawn_s = time.perf_counter() - t_phase
+
+    # the ring against flash_attention on the whole sequence, this card
+    q, k, v, dout, valid = ring_inputs()
+    dev = [torch.as_tensor(a).to("cuda", torch.bfloat16).requires_grad_()
+           for a in (q, k, v)]
+    vd = torch.as_tensor(valid).cuda()
+    out = fa.flash_attention(*dev, ~vd)
+    out.backward(torch.as_tensor(dout).to("cuda", torch.bfloat16))
+    whole = [out.detach()] + [t.grad for t in dev]
+    whole = [t.float().cpu().numpy() for t in whole]
+    n = RING_SHAPE[2] // MULTI_RANK_WORLD
+    ring_err = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for r in ranks:
+        cut = slice(r["rank"] * n, (r["rank"] + 1) * n)
+        for key, got, ref in zip(ring_err, r["ring"], whole):
+            ring_err[key] = max(ring_err[key], rel_err(got, ref[:, :, cut]))
+        if not r["ring_bit_identical"]:
+            raise AssertionError(f"rank {r['rank']}: two ring calls differ")
+        if r["ring_launches"] != {"flash_fwd": 2, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2}:
+            raise AssertionError(f"ring launches {r['ring_launches']}, expected 2 each")
+    if ring_err["out"] > SPEC8_DENOISE_REL_TOL["eps_v"] or \
+            max(ring_err[k] for k in ("dq", "dk", "dv")) > GRAD_REL_TOL:
+        raise AssertionError(f"the flash ring vs the whole sequence: {ring_err}")
+    leaves = [t.detach().clone().requires_grad_() for t in dev]
+
+    def whole_call():
+        o = fa.flash_attention(*leaves, ~vd)
+        o.backward(torch.as_tensor(dout).to("cuda", torch.bfloat16))
+
+    whole_ms = {"fwd": cuda_median_ms(lambda: fa.flash_attention(*[t.detach() for t in dev],
+                                                                 ~vd), cycles_per_s),
+                "fwd_bwd": cuda_median_ms(whole_call, cycles_per_s, reps=10)}
+    # the kernels at a rank's shape, as the ring calls them on each block:
+    # rank 0's queries against rank 1's keys (the pad key masked)
+    B, H, N, Dh = RING_SHAPE
+    shard = [dev[0].detach()[:, :, :n].contiguous()] + [
+        t.detach()[:, :, n:].contiguous() for t in dev[1:]]
+    vshard = vd[:, n:].contiguous()
+    n_valid = [int(x) for x in vshard.sum(dim=1)]
+    reset_launch_counts(fa)
+    o, lse, fwd_rec = forward_case(fa, "ring_block", *shard, vshard, n_valid, cycles_per_s)
+    dl = torch.as_tensor(dout[:, :, :n]).to("cuda", torch.bfloat16).contiguous()
+    bwd_recs = backward_case(fa, "ring_block", *shard, vshard, o, lse, dl, n_valid,
+                             cycles_per_s)
+
+    # each layout's step against its one-process reference (data 2 and
+    # model 2 share one: the same config)
+    layouts, refs = {}, {}
+    for name in MULTI_RANK_LAYOUTS:
+        key = repr(MULTI_RANK_LAYOUTS[name][1])
+        if key not in refs:
+            refs[key] = multi_rank_step(fa, name)
+        ref = refs[key]
+        want = MULTI_RANK_LAUNCHES[name]
+        errs = []
+        for r in ranks:
+            got = r["steps"][name]
+            if any(c != want for c in got["launches"].values()):
+                raise AssertionError(f"{name} rank {r['rank']}: launches {got['launches']}, "
+                                     f"expected {want} each")
+            loss_rel = abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) / \
+                abs(ref["metrics"]["loss"])
+            norm_rel = abs(got["metrics"]["grad_norm"] - ref["metrics"]["grad_norm"]) / \
+                ref["metrics"]["grad_norm"]
+            grad_rel = max(rel_err(got["grads"][g], ref["grads"][g]) for g in MULTI_RANK_GRADS)
+            errs.append({"loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
+                         "grad_rel_err": grad_rel})
+            if not np.isfinite(got["metrics"]["loss"]) or \
+                    max(loss_rel, norm_rel, grad_rel) > SPEC8_GRAD_REL_TOL:
+                raise AssertionError(f"{name} rank {r['rank']} vs one process: "
+                                     f"{errs[-1]} (tol {SPEC8_GRAD_REL_TOL})")
+        layouts[name] = {
+            "layout": MULTI_RANK_LAYOUTS[name][0], "backend": MULTI_RANK_BACKEND,
+            "loss": ranks[0]["steps"][name]["metrics"]["loss"],
+            "one_process_loss": ref["metrics"]["loss"],
+            "step_ms": [r["steps"][name]["step_ms"] for r in ranks],
+            "one_process_step_ms": ref["step_ms"],
+            "peak_gb": [r["steps"][name]["peak_gb"] for r in ranks],
+            "one_process_peak_gb": ref["peak_gb"],
+            "launches": [r["steps"][name]["launches"] for r in ranks],
+            "launches_expected": want, "one_process_launches": ref["launches"],
+            "errors": errs}
+
+    # the sampled batches against one process
+    _, _, frames = multi_rank_inputs()
+    one, one_den = multi_rank_sample(None, frames)
+    sample_err = {}
+    for key in ("sample_data2", "sample_context2"):
+        sample_err[key] = max(rel_err(r[key][0], one) for r in ranks)
+        if not all(np.isfinite(r[key][0]).all() and r[key][0].shape == one.shape
+                   and np.abs(r[key][0]).max() <= 1.0 for r in ranks):
+            raise AssertionError(f"{key}: a non-finite, out-of-range or misshapen batch")
+    if max(sample_err.values()) > MULTI_RANK_SAMPLE_REL_TOL:
+        raise AssertionError(f"the sampled batches vs one process: {sample_err} "
+                             f"(tol {MULTI_RANK_SAMPLE_REL_TOL})")
+    denoise_err = {k: max(rel_err(r["sample_context2"][1][k], one_den[k]) for r in ranks)
+                   for k in SPEC8_DENOISE_REL_TOL}
+    if any(denoise_err[k] > SPEC8_DENOISE_REL_TOL[k] for k in denoise_err):
+        raise AssertionError(f"the denoiser forward under context 2 vs one process: "
+                             f"{denoise_err} (tol {SPEC8_DENOISE_REL_TOL})")
+
+    # the dry run, 4 ranks on this card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device="cuda", backend=MULTI_RANK_BACKEND, timeout=600)
+    dry_s = time.perf_counter() - t0
+    emit({"phase": "multi_rank", "world": MULTI_RANK_WORLD, "backend": MULTI_RANK_BACKEND,
+          "device": smi, "note": "two ranks share one card's SMs and gloo moves bytes through "
+          "the host: these times are no scaling figures; NCCL across cards is unverified",
+          "ring": {"shape_per_rank": [B, H, n, Dh], "whole_shape": list(RING_SHAPE),
+                   "rel_err": ring_err, "bit_identical": True,
+                   "ring_ms": [r["ring_ms"] for r in ranks], "whole_ms": whole_ms,
+                   "launches_per_rank": ranks[0]["ring_launches"]},
+          "layouts": layouts, "sample_rel_err": sample_err,
+          "sample_tol": MULTI_RANK_SAMPLE_REL_TOL, "context_denoise_rel_err": denoise_err,
+          "context_denoise_tol": SPEC8_DENOISE_REL_TOL, "dryrun": dry, "dryrun_s": dry_s,
+          "spawned_pair_s": spawn_s, "phase_s": time.perf_counter() - t_phase})
+    paths = {f"multi_rank_{name}": ranks[0]["steps"][name]["launches"]
+             for name in MULTI_RANK_LAYOUTS}
+    paths["multi_rank_ring"] = ranks[0]["ring_launches"]
+    return paths, {"fwd": fwd_rec, **bwd_recs}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2692,6 +3096,9 @@ def main(argv=None) -> int:
     by_path.update(pixel_phases(fa))
     by_path["spec8_remat"] = spec8_remat_phase(fa, smi)
     torch.cuda.empty_cache()
+    multi_paths, ring_cases = multi_rank_phase(fa, spin_cycles_per_s(), smi)
+    by_path.update(multi_paths)
+    torch.cuda.empty_cache()
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}
@@ -2719,7 +3126,8 @@ def main(argv=None) -> int:
                   "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                   "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
            for name, rec in [(n, text_cases[n]["fwd"]) for n in ("t2i_sample", "t2a_sample")]
-           + [(n, pixel_cases[n]["fwd"]) for n in ("pixel_sample", "pixel_train")]}}]
+           + [(n, pixel_cases[n]["fwd"]) for n in ("pixel_sample", "pixel_train")]
+           + [("ring_block", ring_cases["fwd"])]}}]
     for kernel, line in (("dkdv", 205), ("dq", 276)):
         rec = cases[("mvp_train", "bfloat16", kernel)]
         flag = cases[("flagship", "bfloat16", kernel)]
@@ -2740,7 +3148,8 @@ def main(argv=None) -> int:
                        "library_ms": rec["library_pair_ms"]}
                for where, rec in (("flagship", flag),
                                   ("t2i_train", text_cases["t2i_train"][kernel]),
-                                  ("pixel_train", pixel_cases["pixel_train"][kernel]))}})
+                                  ("pixel_train", pixel_cases["pixel_train"][kernel]),
+                                  ("ring_block", ring_cases[kernel]))}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

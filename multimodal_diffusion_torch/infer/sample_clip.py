@@ -13,6 +13,13 @@ port's own checkpoints (``train/checkpoint.py``) or the JAX package's orbax
 ones (read by ``train/orbax_reader.py``, told apart per step directory), or
 the reference implementation's ``.pt`` file
 (``utils/reference_checkpoint.py``); else from a seeded random init.
+
+Under several ranks (``torch.distributed``, ``parallel/mesh.py``): a config
+with ``parallel.context > 1`` builds its context group here, so every rank
+of it runs the core on its token shard (the ring); ``sample_one_direction``
+with a mesh whose 'data' axis is > 1 samples this rank's rows of the batch,
+from its rows of the global initial noise, and gathers the outputs on every
+rank.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import numpy as np
 import torch
 
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
+from ..parallel import comm
+from ..parallel.mesh import make_mesh_from_config
+from ..parallel.sharding import shard_batch
 from ..train.checkpoint import (CheckpointManager, cast_params_bf16, checkpoint_format,
                                 jax_params_only, params_only_tree)
 from ..train.orbax_reader import read_orbax_step
@@ -115,13 +125,16 @@ def checkpoint_state_dict(cfg: Dict, model: AVDiffusionModel,
 
 def build_components(cfg: Dict, params: Optional[Mapping] = None,
                      device: Device = "cuda", use_ema: bool = False,
-                     bf16_params: bool = False) -> AVDiffusionModel:
+                     bf16_params: bool = False, mesh=None) -> AVDiffusionModel:
     """The model in eval mode on `device`: weights from a JAX params tree
     when given, else from the checkpoint paths.ckpt_path names
     (``checkpoint_state_dict``; the EMA weights swapped in when `use_ema`),
     else a random init seeded by cfg['seed']. With `bf16_params` and a bf16
     compute config the fp32 weights become bf16 once after the restore
-    (``cast_params_bf16``; inference only), as the JAX package's.
+    (``cast_params_bf16``; inference only), as the JAX package's. A config
+    with ``parallel.context > 1`` lays the core out over the ranks
+    (``make_mesh_from_config``, unless `mesh` is given), as the JAX
+    package's build_components does.
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions
@@ -131,7 +144,10 @@ def build_components(cfg: Dict, params: Optional[Mapping] = None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtype = compute_dtype_from_config(cfg)
-    model = AVDiffusionModel(AVDiffusionConfig.from_config(cfg, dtype=dtype))
+    par = cfg.get("parallel", {}) or {}
+    if mesh is None and int(par.get("context", 1) or 1) > 1:
+        mesh = make_mesh_from_config(cfg)
+    model = AVDiffusionModel(AVDiffusionConfig.from_config(cfg, dtype=dtype, mesh=mesh))
     if params is not None:
         load_jax_params(model, params)
     else:
@@ -158,6 +174,7 @@ def sample_one_direction(
     prompt_audio=None,  # [L] or [B,L] float32 (numpy or torch)
     generator: Optional[torch.Generator] = None,
     device: Device = "cuda",
+    mesh=None,
 ) -> Dict[str, object]:
     """DDIM+CFG generation of the non-prompt modality.
 
@@ -166,7 +183,9 @@ def sample_one_direction(
     batch axis on the prompt generates B clips in one batched call.
     `generator` (a CPU generator) draws the initial noise. With the
     mouth-crop stream enabled, v2a conditions on mouth tokens cut from the
-    prompt frames; a2v runs with the stream zeroed."""
+    prompt frames; a2v runs with the stream zeroed. `mesh` (default: the
+    model core's) with 'data' > 1: every rank passes the whole batch, samples
+    its rows and returns the whole batch's outputs."""
     if prompt_modality not in {"video", "audio"}:
         raise ValueError("prompt_modality must be 'video' or 'audio'")
     dev = _model_device(model)
@@ -174,6 +193,12 @@ def sample_one_direction(
         raise ValueError(f"model is on {dev}, not {device}")
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    if mesh is None:
+        mesh = model.cfg.core.mesh
+    group = None if mesh is None else mesh.group("data")
+
+    def rows(x):  # this rank's rows of the global batch
+        return shard_batch(mesh, x, x.shape[0])
 
     vl = cfg["video"]["latent"]
     al = cfg["audio"]["latent"]
@@ -207,12 +232,14 @@ def sample_one_direction(
             if T_crop != T_in:
                 s0 = (T_in - T_crop) // 2
                 frames = frames[:, :, s0:s0 + T_crop]
+            z_init = rows(torch.randn((B, Ca, Fa), generator=generator)).to(dev)
+            frames = rows(frames)
             z_v0 = model.encode_video(frames)
-            z_init = torch.randn((B, Ca, Fa), generator=generator).to(dev)
             sample, _ = sampler_from_config(cfg, target="audio")
             tok_m = model.mouth_tokens(frames) if model.cfg.mouth_enabled else None
             z_a = sample(model, z_v0, z_init, tok_mouth=tok_m)
-            wav = model.decode_audio(z_a)[:, 0].float().cpu().numpy()  # [B, L]
+            wav = comm.all_gather(model.decode_audio(z_a)[:, 0].float(), group, 0)
+            wav = wav.cpu().numpy()  # [B, L]
             return {"audio": wav if batched else wav[0], "sr": sr}
 
         if prompt_audio is None:
@@ -222,15 +249,16 @@ def sample_one_direction(
         if not batched:
             wav = wav[None]
         B = wav.shape[0]
-        z_a0 = model.encode_audio(wav[:, None, :])
+        z_a0 = model.encode_audio(rows(wav)[:, None, :])
         T_in = (prompt_video.shape[-4] if prompt_video is not None
                 else int(round(float(cfg["data"]["clip_seconds"]) * fps)))
         Tp = max(1, T_in // t_down)
-        z_init = torch.randn((B, Cv, Tp, H // s_down, W // s_down),
-                             generator=generator).to(dev)
+        z_init = rows(torch.randn((B, Cv, Tp, H // s_down, W // s_down),
+                                  generator=generator)).to(dev)
         sample, _ = sampler_from_config(cfg, target="video")
         z_v = sample(model, z_a0, z_init)
-        x = model.decode_video(z_v).float().clamp(0, 1).cpu().numpy()  # [B,3,T,H,W]
+        x = comm.all_gather(model.decode_video(z_v).float().clamp(0, 1), group, 0)
+        x = x.cpu().numpy()  # [B,3,T,H,W]
         frames_u8 = (x.transpose(0, 2, 3, 4, 1) * 255.0).astype(np.uint8)
         return {"video": frames_u8 if batched else frames_u8[0], "fps": fps}
 

@@ -82,14 +82,36 @@ class AVDiffusionConfig:
 
     @classmethod
     def from_config(cls, cfg: Dict, dtype: Any = torch.float32,
-                    remat: bool = False) -> "AVDiffusionConfig":
+                    remat: bool = False, mesh: Any = None) -> "AVDiffusionConfig":
+        """`mesh` (parallel/mesh.py) carries the core's layouts:
+        ``parallel.context > 1`` needs one with a 'context' axis,
+        ``parallel.pipe > 1`` one with a 'pipe' axis (the two do not
+        combine), and a 'model' axis of size > 1 splits the core's heads
+        and MLP units."""
         mouth = (cfg.get("conditioning", {}) or {}).get("mouth_crop", {}) or {}
         mtube = mouth.get("tube", {}) or {}
         par = cfg.get("parallel", {}) or {}
-        for key in ("context", "pipe"):
-            if int(par.get(key, 1) or 1) > 1:
-                raise NotImplementedError(
-                    f"parallel.{key} > 1 is not ported yet (a later slice)")
+        n_context = int(par.get("context", 1) or 1)
+        n_pipe = int(par.get("pipe", 1) or 1)
+        layout = {}
+        if n_context > 1:
+            if mesh is None or "context" not in mesh.axis_names:
+                raise ValueError("parallel.context > 1 requires a mesh with a 'context' "
+                                 "axis (make_mesh_from_config builds one)")
+            layout = {"context_axis": "context",
+                      "context_flash": bool(par.get("context_flash", False))}
+        if n_pipe > 1:
+            if n_context > 1:
+                raise ValueError("parallel.pipe and parallel.context cannot be combined")
+            if mesh is None or "pipe" not in mesh.axis_names:
+                raise ValueError("parallel.pipe > 1 requires a mesh with a 'pipe' axis "
+                                 "(make_mesh_from_config builds one)")
+            layout = {"pipe_axis": "pipe",
+                      "pipe_microbatches": int(par.get("pipe_microbatches", 4))}
+        if mesh is not None and mesh.size("model") > 1:
+            layout["model_axis"] = "model"
+        if layout:
+            layout["mesh"] = mesh
         tok = cfg["tokenizer"]
         tube = tok["video"]["tube"]
         chunk = tok["audio"]["chunk"]
@@ -102,7 +124,8 @@ class AVDiffusionConfig:
             chunk=(int(chunk["length"]), int(chunk["stride"])),
             vae=VideoVAEConfig.from_dict(cfg["video"], dtype=dtype),
             codec=AudioCodecConfig.from_dict(cfg["audio"], dtype=dtype),
-            core=MMDiTConfig.from_dict(cfg["model"]["core"], dtype=dtype, remat=remat),
+            core=MMDiTConfig.from_dict(cfg["model"]["core"], dtype=dtype, remat=remat,
+                                       **layout),
             head_hidden=int(heads["video"]["hidden_dim"]),
             head_num_layers=int(heads["video"].get("num_layers", 2)),
             head_dropout=float(cfg["model"]["core"].get("dropout", 0.1)),

@@ -20,18 +20,28 @@ restores through ``checkpoint.restore_jax_state``, and the generator starts
 from the seed, as that tree holds no generator state. SIGTERM or SIGINT ends the run after the step in flight, with a
 checkpoint.
 
-Runs on CUDA unless ``--device cpu``, and raises without a card. One process
-only: ``WORLD_SIZE > 1`` raises until the multi-process slice.
+Runs on CUDA unless ``--device cpu``, and raises without a card. Under a
+launcher that starts several processes (``torchrun --nproc-per-node=N``:
+``WORLD_SIZE > 1``) each rank joins the process group (``nccl`` on cards,
+one card per rank by ``LOCAL_RANK``; ``gloo`` with ``--device cpu``) and
+the ``parallel.*`` keys lay the step out over the ranks
+(``parallel/mesh.py``); the streamed loader gives each data rank its shard
+of the clips and its rows of each global batch, and only rank 0 writes logs
+and checkpoints (the whole state: every rank holds all of it). The
+device-resident input stays one process, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import signal
+
+import torch
 
 from ..datasets.collate import collate_batch
 from ..datasets.loader import DataLoader
+from ..parallel.mesh import (init_distributed, is_lead, local_device, make_mesh_from_config,
+                             world_size_and_rank)
 from ..utils.io import load_config, resolve_device
 from .checkpoint import (CheckpointManager, checkpoint_format, restore_jax_state, restore_state,
                          state_to_tree)
@@ -40,13 +50,12 @@ from .orbax_reader import read_orbax_step
 from .trainer import create_trainer, run_training, run_validation
 
 
-def maybe_init_distributed() -> None:
-    """One process: nothing to set up. A launcher that asks for more
-    (``WORLD_SIZE > 1``) gets NotImplementedError until the multi-process
-    path is ported."""
-    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-        raise NotImplementedError(
-            "multi-process training (WORLD_SIZE > 1) is not ported yet; run one process")
+def maybe_init_distributed(device) -> bool:
+    """Join the launcher's process group when ``WORLD_SIZE > 1`` (nccl for
+    CUDA, gloo for the CPU); returns whether there are several processes."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return init_distributed("nccl" if device.type == "cuda" else "gloo")
 
 
 def _manifest_dataset(cfg, manifest):
@@ -80,8 +89,9 @@ def main(argv=None):
                     help="cpu to run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device.lower() if args.device else "cuda")
-    maybe_init_distributed()
+    device = local_device(resolve_device(args.device.lower() if args.device else "cuda"))
+    several = maybe_init_distributed(device)
+    lead = is_lead()
     cfg = load_config(*args.config)
 
     # ---- data ----
@@ -97,8 +107,10 @@ def main(argv=None):
         dataset = _manifest_dataset(cfg, cfg["data"]["train_split_glob"])
     T_target, L_target = dataset.T, dataset.L
 
-    bundle = create_trainer(cfg, device=device)
+    mesh = make_mesh_from_config(cfg)
+    bundle = create_trainer(cfg, device=device, mesh=mesh)
     global_batch = bundle.latent_shapes["video"][0]
+    n_data, rank_in_data = mesh.size("data"), mesh.index("data")
     seed = int(cfg.get("seed", 0))
     resident = bool(cfg["data"].get("device_resident", False)) and bool(records)
     if resident:
@@ -109,21 +121,27 @@ def main(argv=None):
             dataset, device, global_batch, seed=seed,
             max_clips=cfg["data"].get("resident_max_clips"))
     else:
+        # each data rank streams its shard of the clips, its rows of a batch
         loader = DataLoader(
             dataset,
-            batch_size=global_batch,
+            batch_size=global_batch // n_data,
             collate_fn=lambda items: collate_batch(items, T_target, L_target),
             shuffle=True,
             drop_last=True,
             num_workers=int(cfg["data"].get("num_workers", 2)) or 2,
             prefetch=int(cfg["data"].get("prefetch_factor", 2)),
             seed=seed,
+            shard_id=rank_in_data,
+            num_shards=n_data,
         )
-    print(f"[data] {len(dataset)} clips; global batch {global_batch}; device {device}; "
-          f"{'device-resident' if resident else 'streamed'} input", flush=True)
+    if lead:
+        print(f"[data] {len(dataset)} clips; global batch {global_batch}; device {device}; "
+              f"{'device-resident' if resident else 'streamed'} input", flush=True)
+        if several:
+            print(f"[mesh] {mesh.shape} over {world_size_and_rank()[0]} ranks", flush=True)
 
-    # ---- logging / checkpoints ----
-    writer = MetricWriter(cfg["paths"]["log_dir"])
+    # ---- logging / checkpoints (the lead rank only) ----
+    writer = MetricWriter(cfg["paths"]["log_dir"]) if lead else None
     ckpt = CheckpointManager(cfg["paths"]["ckpt_dir"])
 
     latest = ckpt.latest_step() if args.resume else None
@@ -136,15 +154,17 @@ def main(argv=None):
         print(f"[resume] restored step {bundle.state.step} from {ckpt.dir}", flush=True)
 
     def log_fn(step, metrics):
-        writer.write(step, metrics)
-        print(_log_line(step, metrics), flush=True)
+        if lead:
+            writer.write(step, metrics)
+            print(_log_line(step, metrics), flush=True)
 
     # accepted for the JAX configs; the port's saves are synchronous either way
     ckpt_async = bool(cfg["training"].get("ckpt_async", True))
 
     def ckpt_fn(step, state):
-        ckpt.save(step, state_to_tree(state), meta={"experiment": cfg.get("experiment", "")},
-                  wait=not ckpt_async)
+        if lead:
+            ckpt.save(step, state_to_tree(state),
+                      meta={"experiment": cfg.get("experiment", "")}, wait=not ckpt_async)
 
     val_fn = None
     val_manifest = cfg["data"].get("val_split_glob")
@@ -158,8 +178,9 @@ def main(argv=None):
 
         def val_fn(step, state):
             metrics = run_validation(bundle, val_loader.epoch(0), n_batches=8)
-            writer.write(step, metrics)
-            print(_log_line(step, metrics), flush=True)
+            if lead:
+                writer.write(step, metrics)
+                print(_log_line(step, metrics), flush=True)
 
     # Preemption: SIGTERM/SIGINT request a clean stop; the loop exits after
     # the step in flight and the final checkpoint below is written before
@@ -199,11 +220,12 @@ def main(argv=None):
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
 
-    ckpt.save(state.step, state_to_tree(state),
-              meta={"experiment": cfg.get("experiment", ""), "final": True}, wait=True)
+    if lead:
+        ckpt.save(state.step, state_to_tree(state),
+                  meta={"experiment": cfg.get("experiment", ""), "final": True}, wait=True)
+        print(f"[done] step {state.step}; checkpoints in {ckpt.dir}", flush=True)
+        writer.close()
     ckpt.close()
-    print(f"[done] step {state.step}; checkpoints in {ckpt.dir}", flush=True)
-    writer.close()
     return state
 
 

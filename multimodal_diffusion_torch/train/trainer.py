@@ -16,9 +16,27 @@ test hands both frameworks the same numpy draws. Dropout draws from the same
 generator. Nothing uses torch's global RNG.
 
 ``parallel.remat_core`` recomputes each core block's activations in the
-backward pass (``models/mmdit.py::remat_block``); ``parallel.model > 1``
-raises ``NotImplementedError`` until its slice. ``run_training`` logs the
+backward pass (``models/mmdit.py::remat_block``). ``run_training`` logs the
 denoiser's MFU (``utils/profiling.py``) with the JAX loop's formula.
+
+Layouts over ranks (``parallel.data``, ``model``, ``context``, ``pipe``;
+``parallel/mesh.py``): every rank holds the whole model, optimizer and EMA,
+draws the one-process step's randomness (and dropout masks) for the global
+batch and keeps its part. After the backward pass the gradients are summed
+so every rank holds the one-process gradient:
+
+  * over 'data', every gradient: each rank's loss is its rows' share of the
+    global batch's loss (the losses divide by the global batch's counts,
+    ``train/losses.py``), so the sum is the global loss's gradient;
+  * over 'model', the core projections' split parameters
+    (``parallel/sharding.py::is_split``): each rank's heads and units reach
+    only its part of them;
+  * over 'context' and over 'pipe', the core blocks' parameters: each rank
+    runs them on its token shard, or its stage's blocks only.
+
+The layouts' entry and exit collectives (``parallel/comm.py``) hand every
+rank the whole gradient of what runs before and after the core, so nothing
+else is summed. The clip, AdamW and the EMA then run alike on every rank.
 """
 
 from __future__ import annotations
@@ -35,9 +53,12 @@ import torch
 
 from ..datasets.loader import copy_to_device, device_prefetch
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
-from ..models.mmdit import set_dropout_generator
+from ..models.mmdit import set_dropout_generator, split_dropout
 from ..ops import schedule as S
 from ..ops.tokenize import num_chunks
+from ..parallel import comm
+from ..parallel.mesh import make_mesh_from_config
+from ..parallel.sharding import is_split, replicated, shard_batch
 from ..utils.io import compute_dtype_from_config, latent_shapes_from_config, resolve_device
 from ..utils.profiling import calib_tflops, device_peak_flops, flops_mmdit_forward
 from .losses import (alignment_loss, mse_targets_only, reconstruction_loss,
@@ -270,12 +291,14 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, to
 
 def train_loss(model: AVDiffusionModel, sc: StepConfig, abar_v: torch.Tensor,
                abar_a: torch.Tensor, batch: Dict[str, torch.Tensor], target_is_video: float,
-               draws: Dict[str, torch.Tensor], with_recon: Optional[bool] = None
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               draws: Dict[str, torch.Tensor], with_recon: Optional[bool] = None,
+               group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The train loss of one batch (on the device, video already [B, 3, T, H,
     W] float) under the given draws; returns (loss, its parts).
     ``with_recon`` says whether this step decodes and takes the
-    reconstruction loss (None: whenever sc.recon_weight > 0)."""
+    reconstruction loss (None: whenever sc.recon_weight > 0). `group`: the
+    data-parallel group whose ranks hold the rest of the batch (each
+    rank's loss is then its share of the global batch's loss)."""
     if with_recon is None:
         with_recon = sc.recon_weight > 0.0
     t_v, t_a = draws["t_v"], draws["t_a"]
@@ -301,21 +324,22 @@ def train_loss(model: AVDiffusionModel, sc: StepConfig, abar_v: torch.Tensor,
                 use_kernel=sc.use_kernel)
     loss_main = mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
                                  out["eps_true_a"], target_is_video,
-                                 batch.get("has_video"), batch.get("has_audio"))
-    loss_align = alignment_loss(out["h_v"], out["h_a"], weight=sc.align_weight)
+                                 batch.get("has_video"), batch.get("has_audio"), group=group)
+    loss_align = alignment_loss(out["h_v"], out["h_a"], weight=sc.align_weight, group=group)
     if sc.sync_source == "mouth":
         # the mouth tokens' rate; a dropped or target-side stream carries no timing
         loss_sync = sync_contrastive_loss(out["h_m"], out["h_a"], sc.mouth_time_chunks,
                                           weight=sc.sync_weight, tau=sc.sync_tau,
-                                          sample_weight=keep_m)
+                                          sample_weight=keep_m, group=group)
     else:
         loss_sync = sync_contrastive_loss(out["h_v"], out["h_a"], sc.video_time_chunks,
-                                          weight=sc.sync_weight, tau=sc.sync_tau)
+                                          weight=sc.sync_weight, tau=sc.sync_tau,
+                                          group=group)
     if with_recon:
         loss_recon = reconstruction_loss(out["recon_v"], batch["video"], out["recon_a"],
                                          batch["audio"], weight=sc.recon_weight,
                                          has_video=batch.get("has_video"),
-                                         has_audio=batch.get("has_audio"))
+                                         has_audio=batch.get("has_audio"), group=group)
     else:
         loss_recon = torch.zeros((), device=loss_main.device)
     loss = loss_main + loss_align + loss_recon + loss_sync
@@ -323,7 +347,37 @@ def train_loss(model: AVDiffusionModel, sc: StepConfig, abar_v: torch.Tensor,
                   "loss_recon": loss_recon, "loss_sync": loss_sync}
 
 
-def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor):
+def reduce_gradients(names: Sequence[str], params: Sequence[torch.Tensor],
+                     mesh) -> List[Optional[torch.Tensor]]:
+    """The parameters' gradients summed over the mesh's groups as the module
+    docstring says (a missing gradient counts as zero and becomes a tensor
+    when any sum runs)."""
+    grads = [p.grad for p in params]
+    axes = [a for a in ("data", "model", "context", "pipe") if mesh is not None
+            and mesh.size(a) > 1]
+    if not axes:
+        return grads
+    grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+             for p, g in zip(params, grads)]
+    for axis in axes:
+        if axis == "data":
+            picked = range(len(names))
+        elif axis == "model":
+            picked = [i for i, n in enumerate(names) if is_split(n)]
+        else:
+            picked = [i for i, n in enumerate(names) if n.startswith("core.blocks.")]
+        comm.sum_over([grads[i] for i in picked], mesh.group(axis))
+    return grads
+
+
+def _sum_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """0-d metrics summed over `group` (one transfer)."""
+    keys = list(metrics)
+    flat = comm.all_reduce_(torch.stack([metrics[k].detach().float() for k in keys]), group)
+    return dict(zip(keys, flat.unbind()))
+
+
+def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor, mesh=None):
     """Returns train_step(state, batch, target_is_video, draws=None) ->
     metrics (0-d tensors on the device: loss, loss_main, loss_align,
     loss_recon, loss_sync, grad_norm before the clip). `draws` default to a
@@ -331,7 +385,14 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor)
     brings state.step to a multiple of sc.recon_every decodes and takes the
     reconstruction loss; the others skip the decode (loss_recon 0), and a
     parameter that such a step gives no gradient still takes the optimizer's
-    zero-gradient update (moment decay and weight decay)."""
+    zero-gradient update (moment decay and weight decay).
+
+    Under a `mesh` with 'data' > 1 the batch and the draws are the global
+    batch's (``shard_batch`` keeps this rank's rows; a batch of this rank's
+    rows passes through), the gradients are summed as ``reduce_gradients``
+    says, and the metrics are the global batch's on every rank."""
+    B = sc.z_video_shape[0]
+    data_group = None if mesh is None else mesh.group("data")
 
     def train_step(state: TrainState, batch: Dict[str, Any], target_is_video: float,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -339,14 +400,18 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor)
         device = abar_v.device
         if draws is None:
             draws = draw_step_randomness(state.generator, sc)
+        draws = shard_batch(mesh, draws, B)
+        batch = shard_batch(mesh, batch, B)
         params = state.optimizer.params
         for p in params:
             p.grad = None
         with_recon = sc.recon_weight > 0.0 and (state.step + 1) % sc.recon_every == 0
         loss, metrics = train_loss(model, sc, abar_v, abar_a, batch_to_device(batch, device),
-                                   target_is_video, draws, with_recon)
+                                   target_is_video, draws, with_recon, data_group)
         loss.backward()
-        grads = [p.grad for p in params]
+        grads = reduce_gradients(state.optimizer.names, params, mesh)
+        if data_group is not None:
+            metrics = _sum_metrics(metrics, data_group)
         with torch.no_grad():
             metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
             state.optimizer.step(grads)
@@ -364,13 +429,16 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor)
     return train_step
 
 
-def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor):
+def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor, mesh=None):
     """Returns eval_step(model, batch, generator) -> {val_loss_video,
     val_loss_audio, val_loss}: per-modality target MSE with no CFG drop, no
     dropout, timesteps and noise from `generator`. With the mouth-crop stream
     enabled the audio loss comes from a second forward with the stream on
     (the v2a sampling configuration); the first keeps it zeroed, so the video
-    loss never sees clean target pixels."""
+    loss never sees clean target pixels. Under 'data' > 1 each rank takes
+    its rows and the losses are the global batch's."""
+    B = sc.z_video_shape[0]
+    data_group = None if mesh is None else mesh.group("data")
 
     @torch.no_grad()
     def eval_step(model: AVDiffusionModel, batch: Dict[str, Any],
@@ -378,15 +446,16 @@ def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor):
         was_training = model.training
         model.eval()
         try:
-            b = batch_to_device(batch, abar_v.device)
-            d = draw_step_randomness(generator, sc)
+            b = batch_to_device(shard_batch(mesh, batch, B), abar_v.device)
+            d = shard_batch(mesh, draw_step_randomness(generator, sc), B)
             def losses_of(keep_m, target_is_video):
                 out = model(b["video"], b["audio"], d["t_v"], d["t_a"], d["noise_v"],
                             d["noise_a"], abar_v, abar_a, keep_m=keep_m,
                             use_kernel=sc.use_kernel)
                 return [mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
                                          out["eps_true_a"], w, b.get("has_video"),
-                                         b.get("has_audio")) for w in target_is_video]
+                                         b.get("has_audio"), group=data_group)
+                        for w in target_is_video]
 
             if model.cfg.mouth_enabled:
                 (loss_v,) = losses_of(None, (1.0,))
@@ -396,6 +465,8 @@ def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor):
                 loss_v, loss_a = losses_of(None, (1.0, 0.0))
         finally:
             model.train(was_training)
+        if data_group is not None:
+            loss_v, loss_a = comm.all_reduce_(torch.stack([loss_v, loss_a]), data_group).unbind()
         return {"val_loss_video": loss_v, "val_loss_audio": loss_a,
                 "val_loss": 0.5 * (loss_v + loss_a)}
 
@@ -416,6 +487,7 @@ class TrainerBundle:
     abar_v: torch.Tensor
     abar_a: torch.Tensor
     device: torch.device
+    mesh: Any = None
 
 
 def run_validation(bundle: TrainerBundle, batches, n_batches: int = 8,
@@ -438,12 +510,19 @@ def _abar(d: Dict, device: torch.device) -> torch.Tensor:
 
 
 def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
-                   seed: Optional[int] = None, use_kernel: Optional[bool] = None
-                   ) -> TrainerBundle:
+                   seed: Optional[int] = None, use_kernel: Optional[bool] = None,
+                   mesh=None) -> TrainerBundle:
     """The model (seeded random init), optimizer, EMA shadow and generator on
     one device (CUDA unless `device="cpu"`; raises when CUDA is asked for and
     absent), and the step functions. `use_kernel` picks the attention
     backend (None: the kernels on CUDA, dense attention on the CPU).
+
+    `mesh` (default ``make_mesh_from_config(cfg)`` over the process group's
+    ranks, or one rank) lays the step out over ranks, as the JAX package's
+    create_trainer: `batch_size` is the GLOBAL batch (default
+    ``data.batch_size`` x the 'data' size), the latent shapes and the draws
+    are the global batch's, and every rank starts from the lead rank's
+    weights. A layout larger than the world raises ValueError.
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions
@@ -461,15 +540,15 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     if recon_every < 1:
         raise ValueError(f"training.recon_every must be >= 1, got {recon_every}")
     par = cfg.get("parallel", {}) or {}
-    if int(par.get("model", 1) or 1) > 1:
-        raise NotImplementedError("parallel.model > 1 (tensor parallelism) is not ported yet")
+    mesh = make_mesh_from_config(cfg) if mesh is None else mesh
     ema_cfg = t_cfg.get("ema", {"use_ema": True, "decay": 0.999}) or {}
     ema_scope = str(ema_cfg.get("scope", "core"))
     if ema_scope not in ("core", "all"):
         raise ValueError(f"training.ema.scope must be core|all, got {ema_scope!r}")
 
     model = AVDiffusionModel(AVDiffusionConfig.from_config(
-        cfg, dtype=compute_dtype_from_config(cfg), remat=bool(par.get("remat_core", False))))
+        cfg, dtype=compute_dtype_from_config(cfg), remat=bool(par.get("remat_core", False)),
+        mesh=mesh))
     if (sync_source == "mouth" and float(t_cfg.get("sync_loss_weight", 0.0)) > 0.0
             and not model.cfg.mouth_enabled):
         raise ValueError("training.sync_loss_source: mouth requires "
@@ -484,10 +563,18 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     seed = int(cfg.get("seed", 0)) if seed is None else int(seed)
     init_weights(model, torch.Generator().manual_seed(seed))
     model.to(dev).train()
+    replicated(mesh, list(model.parameters()))
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     set_dropout_generator(model, generator)
+    n_data = mesh.size("data")
+    # every dropout sees this rank's rows of the global batch
+    split_dropout([model], 0, n_data, mesh.index("data"))
 
-    batch_size = int(cfg["data"]["batch_size"]) if batch_size is None else int(batch_size)
+    if batch_size is None:
+        batch_size = int(cfg["data"]["batch_size"]) * n_data
+    batch_size = int(batch_size)
+    if batch_size % n_data:
+        raise ValueError(f"global batch {batch_size} not divisible by parallel.data={n_data}")
     shapes = latent_shapes_from_config(cfg, batch_size)
     abar_v = _abar(cfg["diffusion"]["video"], dev)
     abar_a = _abar(cfg["diffusion"]["audio"], dev)
@@ -509,9 +596,11 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
         recon_weight=float(t_cfg.get("recon_loss_weight", 0.0)), recon_every=recon_every,
         ema_decay=float(ema_cfg.get("decay", 0.999)), use_ema=use_ema, use_kernel=use_kernel)
     state = TrainState(step=0, model=model, optimizer=optimizer, ema=ema, generator=generator)
-    return TrainerBundle(model=model, state=state, train_step=build_train_step(sc, abar_v, abar_a),
-                         eval_step=build_eval_step(sc, abar_v, abar_a), step_config=sc,
-                         latent_shapes=shapes, abar_v=abar_v, abar_a=abar_a, device=dev)
+    return TrainerBundle(model=model, state=state,
+                         train_step=build_train_step(sc, abar_v, abar_a, mesh),
+                         eval_step=build_eval_step(sc, abar_v, abar_a, mesh), step_config=sc,
+                         latent_shapes=shapes, abar_v=abar_v, abar_a=abar_a, device=dev,
+                         mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -543,7 +632,12 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     once at the start of the call (nv + na leaves out the mouth-crop tokens
     the core also runs, as the JAX formula does); checkpoint_fn(step, state) every `ckpt_every`;
     val_fn(step, state) every `val_every`; `should_stop()` is polled after
-    every step."""
+    every step.
+
+    Under a mesh every rank runs this loop on the same global batches (or
+    its own rows of them, see build_train_step); a step's target is the
+    first data rank's. A card without a known peak logs denoiser_mfu as nan
+    (one warning) and trains."""
     t_cfg = cfg["training"]
     max_steps = max_steps if max_steps is not None else int(t_cfg["max_steps"])
     log_every = int(t_cfg.get("log_every", 50))
@@ -580,7 +674,12 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     na = num_chunks(za[2], int(chunk["length"]), int(chunk["stride"]))
     denoiser_flops = 3.0 * B * flops_mmdit_forward(nv + na, core.d_model, core.n_layers,
                                                    core.mlp_ratio)
-    peak = device_peak_flops(bundle.device)  # an unknown card raises here, before a step
+    try:
+        peak = device_peak_flops(bundle.device)
+    except KeyError as err:
+        warnings.warn(f"{err.args[0]}; denoiser_mfu is logged as nan")
+        peak = math.nan
+    data_group = None if bundle.mesh is None else bundle.mesh.group("data")
     calib = calib_tflops() if bundle.device.type == "cuda" else None
 
     pending: List[Dict[str, torch.Tensor]] = []
@@ -590,6 +689,11 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
                              depth=depth, device=bundle.device)
     try:
         for batch, target_is_video in stream:
+            if data_group is not None:
+                # the batch's own target may differ between the ranks' rows
+                tiv = torch.tensor([target_is_video], device=bundle.device)
+                target_is_video = float(comm.broadcast_(
+                    tiv, bundle.mesh.members("data")[0], data_group)[0])
             metrics = bundle.train_step(state, batch, target_is_video)
             if log_fn is not None:
                 pending.append(metrics)

@@ -32,17 +32,31 @@ has a bias, else ``RMSNorm``;
 ``fc{k}`` is flax's ``Dense_{k-1}`` except in an MLP, where flax names it
 ``fc{k}`` too; a 1-D ``weight`` is a ``scale``, any other a ``kernel``), and
 each kernel back to the JAX layout.
+
+A layout over ranks cuts the same state_dict: ``tp_shard_state_dict`` takes
+a rank's tensor-parallel part (the qkv and fc1 rows, the attention out and
+fc2 columns of every core block, ``parallel/sharding.py``) and
+``tp_gather_state_dicts`` joins the ranks' parts back;
+``pipeline_stage_state_dict`` takes a pipeline stage's blocks (renumbered
+from 0, as the JAX package's per-stage trees ``{block_i}``) and
+``pipeline_gather_state_dicts`` joins the stages back. The fused qkv's part
+is whole heads of q, k and v: the JAX package stores that kernel split into
+contiguous column blocks instead (its XLA program moves what each device
+needs), so only the other three projections' parts equal a JAX device's
+shard.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.sharding import tp_slice, tp_unslice
 
 _NORM = re.compile(r"(RMSNorm|LayerNorm|GroupNorm)_(\d+)")
 _DENSE = re.compile(r"Dense_(\d+)")
@@ -191,3 +205,49 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Load a JAX params tree into `model` (strict: every key on both sides)."""
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)
     return model
+
+
+def tp_shard_state_dict(sd: Mapping[str, torch.Tensor], n: int, i: int
+                        ) -> Dict[str, torch.Tensor]:
+    """Rank i of n's tensor-parallel part of every parameter (the whole
+    tensor where it is not split)."""
+    return {k: tp_slice(k, v, n, i).contiguous() for k, v in sd.items()}
+
+
+def tp_gather_state_dicts(parts: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The whole state_dict from every rank's tp_shard_state_dict, in rank
+    order."""
+    return {k: tp_unslice(k, [p[k] for p in parts]) for k in parts[0]}
+
+
+_BLOCK = re.compile(r"^(.*?blocks\.)(\d+)(\..*)$")
+
+
+def pipeline_stage_state_dict(sd: Mapping[str, torch.Tensor], n_stages: int, stage: int,
+                              prefix: str = "core.") -> Dict[str, torch.Tensor]:
+    """The blocks of `stage` (of n_stages contiguous stages) of the MMDiT
+    core under `prefix`, renumbered from 0."""
+    n_layers = len({m[2] for k in sd if k.startswith(prefix) and (m := _BLOCK.match(k))})
+    if n_layers % n_stages:
+        raise ValueError(f"{n_layers} layers not divisible into {n_stages} stages")
+    k = n_layers // n_stages
+    out = {}
+    for key, v in sd.items():
+        m = _BLOCK.match(key)
+        if key.startswith(prefix) and m and stage * k <= int(m[2]) < (stage + 1) * k:
+            out[f"{m[1]}{int(m[2]) - stage * k}{m[3]}"] = v
+    return out
+
+
+def pipeline_gather_state_dicts(stages: Sequence[Mapping[str, torch.Tensor]],
+                                rest: Mapping[str, torch.Tensor], prefix: str = "core."
+                                ) -> Dict[str, torch.Tensor]:
+    """Every stage's blocks renumbered back into place, beside `rest` (the
+    parameters outside the blocks)."""
+    out = {k: v for k, v in rest.items() if not (k.startswith(prefix) and _BLOCK.match(k))}
+    for s, sd in enumerate(stages):
+        k = len({_BLOCK.match(key)[2] for key in sd})
+        for key, v in sd.items():
+            m = _BLOCK.match(key)
+            out[f"{m[1]}{int(m[2]) + s * k}{m[3]}"] = v
+    return out

@@ -241,6 +241,30 @@ def specificity8_config() -> Dict[str, Any]:
     return copy.deepcopy(SPECIFICITY8_CONFIG)
 
 
+# the mvp tree shrunk for dry runs (the JAX package's __graft_entry__._shrunk_cfg):
+# d=64, 2 layers, 4 heads, 32x32 video, 1 s clips at 8 kHz, fp32
+_SHRUNK_OVERLAY: Dict[str, Any] = {
+    "mixed_precision": "fp32",
+    "data": {"clip_seconds": 1.0, "batch_size": 2},
+    "video": {"fps": 8, "size": [32, 32]},
+    "audio": {"sr": 8000, "codec": {"hop_samples": 160, "hidden": 16},
+              "latent": {"frames_per_clip": 50}},
+    "tokenizer": {"width": 64, "video": {"tube": {"t": 2, "h": 1, "w": 1}},
+                  "audio": {"chunk": {"length": 4, "stride": 4}}},
+    "embeddings": {"timestep_dim": 64},
+    "model": {"core": {"d_model": 64, "n_layers": 2, "n_heads": 4, "mlp_ratio": 2.0,
+                       "dropout": 0.0},
+              "heads": {"video": {"out_dim": 16, "hidden_dim": 64},
+                        "audio": {"out_dim": 32, "hidden_dim": 64}}},
+    "training": {"scheduler": {"warmup_steps": 2}},
+}
+
+
+def shrunk_config() -> Dict[str, Any]:
+    """configs/mvp.yaml at the dry-run sizes (a fresh copy)."""
+    return deep_update(copy.deepcopy(_MVP_CONFIG), copy.deepcopy(_SHRUNK_OVERLAY))
+
+
 def builtin_config(name: str) -> Dict[str, Any]:
     """A fresh copy of a built-in config by name: "mvp" (mvp + v2a) or
     "specificity8" (mvp + specificity8)."""

@@ -32,19 +32,21 @@ def shrunk_cfg(sampler_steps: int = 4) -> dict:
     return cfg
 
 
-def jax_model_and_params(cfg: dict, seed: int = 0):
+def jax_model_and_params(cfg: dict, seed: int = 0, jit: bool = False):
     """The JAX AVDiffusionModel and its params (numpy leaves), perturbed so
-    biases and norm scales are not their trivial zeros/ones."""
+    biases and norm scales are not their trivial zeros/ones. `jit` compiles
+    the init (about half the time of the eager one; its draws differ from
+    the eager ones in the last bits)."""
     model = JaxModel(JaxConfig.from_config(cfg, dtype=jnp.float32))
     s = latent_shapes_from_config(cfg, 1)
     T = int(cfg["diffusion"]["video"]["steps"])
-    variables = model.init(
-        {"params": jax.random.PRNGKey(seed)},
-        jnp.zeros(s["video"]), jnp.zeros(s["audio"]),
-        jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32),
-        jnp.zeros(s["z_video"]), jnp.zeros(s["z_audio"]),
-        jnp.ones((T,)), jnp.ones((T,)))
-    return model, perturb(variables["params"], seed)
+    args = (jnp.zeros(s["video"]), jnp.zeros(s["audio"]),
+            jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32),
+            jnp.zeros(s["z_video"]), jnp.zeros(s["z_audio"]),
+            jnp.ones((T,)), jnp.ones((T,)))
+    init = (jax.jit(lambda key: model.init({"params": key}, *args)) if jit
+            else lambda key: model.init({"params": key}, *args))
+    return model, perturb(init(jax.random.PRNGKey(seed))["params"], seed)
 
 
 def perturb(params, seed: int = 0):
@@ -90,3 +92,64 @@ def shrunk_flagship_cfg(sampler_steps: int = 4) -> dict:
                      "optimizer": {"mv_dtype": "bf16"}},
     })
     return cfg
+
+
+_LAYOUT_FNS = {}
+
+
+def jax_layout_loss_and_grads(cfg: dict, params, batch: dict, draws: dict,
+                              target_is_video: float, layout: dict):
+    """The JAX package's train loss (deterministic) and its gradients on a
+    mesh of the first devices laid out as `layout` (make_mesh axes, plus
+    parallel keys such as context_flash): the model built with that mesh,
+    the params placed by infer_param_shardings, the batch and draws by
+    shard_batch. Returns (loss, grads as the port's state_dict). One
+    compiled program per config and layout serves both targets."""
+    import json
+
+    from multimodal_diffusion_torch.utils.convert import jax_params_to_state_dict
+    from multimodal_diffusion_tpu.ops import schedule as JS
+    from multimodal_diffusion_tpu.parallel.mesh import make_mesh
+    from multimodal_diffusion_tpu.parallel.sharding import infer_param_shardings, shard_batch
+    from multimodal_diffusion_tpu.train import losses as JL
+
+    key = json.dumps([cfg, layout], sort_keys=True, default=str)
+    if key not in _LAYOUT_FNS:
+        axes = {k: int(v) for k, v in layout.items() if k in ("data", "model", "context",
+                                                              "pipe")}
+        axes.setdefault("data", 1)
+        mesh = make_mesh(**axes, devices=jax.devices()[:int(np.prod(list(axes.values())))])
+        jcfg = {**cfg, "parallel": {**(cfg.get("parallel") or {}), **layout}}
+        model = JaxModel(JaxConfig.from_config(jcfg, dtype=jnp.float32, mesh=mesh))
+        s = latent_shapes_from_config(cfg, 1)
+        T = int(cfg["diffusion"]["video"]["steps"])
+        boxed = model.init(
+            {"params": jax.random.PRNGKey(0)},
+            jnp.zeros(s["video"]), jnp.zeros(s["audio"]),
+            jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32),
+            jnp.zeros(s["z_video"]), jnp.zeros(s["z_audio"]),
+            jnp.ones((T,)), jnp.ones((T,)))["params"]
+        dv = cfg["diffusion"]["video"]
+        _, abar = JS.alphas_cumprod_from_betas(JS.make_beta_schedule(
+            T, dv["schedule"], float(dv["min_beta"]), float(dv["max_beta"])))
+
+        def loss_fn(p, b, w):
+            out = model.apply({"params": p}, b["video"], b["audio"], b["t_v"], b["t_a"],
+                              b["noise_v"], b["noise_a"], jnp.asarray(abar),
+                              jnp.asarray(abar), b["keep_v"], b["keep_a"],
+                              deterministic=True)
+            return JL.mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
+                                       out["eps_true_a"], w, b["has_video"], b["has_audio"])
+
+        _LAYOUT_FNS[key] = (mesh, infer_param_shardings(mesh, boxed),
+                            jax.jit(jax.value_and_grad(loss_fn)))
+    mesh, shardings, fn = _LAYOUT_FNS[key]
+    w = float(target_is_video)
+    keep_nt = 1.0 - (draws["cfg_u"] < float(cfg["training"].get("cfg_drop_prob", 0.1)))
+    b = shard_batch(mesh, {**{k: batch[k] for k in ("video", "audio", "has_video",
+                                                    "has_audio")},
+                           **{k: draws[k] for k in ("t_v", "t_a", "noise_v", "noise_a")},
+                           "keep_v": (w + (1 - w) * keep_nt).astype(np.float32),
+                           "keep_a": (w * keep_nt + (1 - w)).astype(np.float32)})
+    loss, grads = fn(jax.device_put(params, shardings), b, jnp.float32(w))
+    return float(loss), jax_params_to_state_dict(jax.device_get(grads))

@@ -2,7 +2,8 @@
 orbax, tensorstore or zstandard, which it reads checkpoints without), the
 weight converter consumes every JAX leaf exactly once, its built-in configs
 are the merged mvp+v2a and mvp+specificity8 YAMLs, its entry points refuse to
-run on the CPU unless asked to, and options of later slices raise."""
+run on the CPU unless asked to, and the layouts the JAX package refuses
+raise."""
 
 import ast
 from pathlib import Path
@@ -24,8 +25,9 @@ from multimodal_diffusion_tpu.utils.io import load_config
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
              "multimodal_diffusion_tpu"}
+# the multi-rank tests' rank bodies run in spawned processes: no JAX there either
 PORT_FILES = sorted((REPO / "multimodal_diffusion_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "_torch_dist.py"]
 
 
 def _imported_roots(path: Path):
@@ -146,20 +148,38 @@ def test_entry_points_raise_without_cuda(no_cuda):
                      str(REPO / "configs" / "specificity8.yaml"), "--manifest", "unused.json"])
 
 
-def test_unported_options_raise(monkeypatch):
-    """Exactly these still raise NotImplementedError: parallel.context,
-    parallel.pipe, parallel.model > 1 and train_joint under WORLD_SIZE > 1
-    (parallel.remat_core and the variational VAE are ported:
-    tests/test_torch_remat_profiling.py)."""
+def test_unported_options_raise():
+    """The layouts run now (tests/test_torch_parallel.py,
+    tests/test_torch_ring_pipeline.py); what still refuses, as the JAX
+    package refuses it: a layout larger than the world (one process with
+    parallel.data 2: ValueError, as make_mesh), pipe with context
+    (ValueError), attention dropout under context and pipelined training
+    with dropout (NotImplementedError). Meshes of two ranks are laid out
+    here without process groups: each refusal comes before any transfer."""
+    from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig, set_dropout_generator
+    from multimodal_diffusion_torch.parallel.mesh import make_mesh
+
     cfg = shrunk_cfg()
-    for key in ("context", "pipe"):
-        with pytest.raises(NotImplementedError):
-            AVDiffusionConfig.from_config({**cfg, "parallel": {key: 2}})
-    with pytest.raises(NotImplementedError):
-        create_trainer({**cfg, "parallel": {"model": 2}}, device="cpu")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
-        train_joint.main(["--config", str(REPO / "configs" / "mvp.yaml"), "--device", "cpu"])
+    for par in ({"data": 2}, {"data": -1, "model": 2}, {"data": 1, "context": 2}):
+        with pytest.raises(ValueError, match="needs more than 1 devices|not divisible"):
+            create_trainer({**cfg, "parallel": par}, device="cpu")
+    assert create_trainer({**cfg, "parallel": {"data": -1}}, device="cpu").mesh.shape == {
+        "data": 1, "model": 1}
+    two = make_mesh(data=1, context=2, pipe=2, world=4, rank=0)
+    with pytest.raises(ValueError, match="cannot be combined"):
+        AVDiffusionConfig.from_config({**cfg, "parallel": {"context": 2, "pipe": 2}}, mesh=two)
+    core = dict(d_model=16, n_layers=2, n_heads=2, dropout=0.0)
+    x = torch.zeros(1, 4, 16)
+    ctx = make_mesh(data=1, context=2, world=2, rank=0)
+    net = MMDiT(MMDiTConfig(**core | {"attn_dropout": 0.1}, mesh=ctx, context_axis="context"))
+    set_dropout_generator(net, torch.Generator())
+    with pytest.raises(NotImplementedError, match="attn_dropout"):
+        net.train()(x)
+    pipe = make_mesh(data=1, pipe=2, world=2, rank=0)
+    net = MMDiT(MMDiTConfig(**core | {"dropout": 0.1}, mesh=pipe, pipe_axis="pipe"))
+    set_dropout_generator(net, torch.Generator())
+    with pytest.raises(NotImplementedError, match="dropout == 0"):
+        net.train()(x)
 
 
 def test_orbax_checkpoint_restores(tmp_path):
