@@ -216,10 +216,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                and one under context 2 (spec8_v2a's N(0, 0.02) weights),
                finite, in range and within 2e-2 of one process, and under
                context 2 the sampler's denoiser forward (spec8_denoise)
-               within SPEC8_DENOISE_REL_TOL of one process; then
-               tools/dryrun_multichip.py at n = 4 on this card (gloo; the
-               shrunk core with 2 heads of 32, the kernels' smallest head
-               dim).
+               within SPEC8_DENOISE_REL_TOL of one process. Under model 2
+               each rank holds only its part of the split projections (qkv,
+               fc1, attention out, fc2), of their gradients, EMA and bf16
+               moments: its state bytes must equal one process's less
+               half of the split ones', its parameters and EMA after two
+               steps at the constant LR within MULTI_RANK_PARAM_ABS_TOL of
+               one process's AdamW on its gathered gradients; both
+               ranks' torch.cuda.memory_allocated() read at one moment (a
+               multi_rank_shared_card line: two processes hold the one
+               card); the checkpoint the ranks gather and rank 0 writes,
+               restored in one process here, bit-equal (sha256 of every
+               tensor); the kernels at a rank's heads, [8, 4, 421, 128]
+               (the model2_block case); a 2-step v2a flagship batch under
+               model.core.quant int8 with bf16 serving weights, bit-equal
+               to one process's int8 batch, every hot projection's part
+               servable by torch._int_mm, exactly 32 forward launches a
+               batch. Then tools/dryrun_multichip.py at n = 4 on this card
+               (gloo; the shrunk core with 2 heads of 32, the kernels'
+               smallest head dim).
+ 23. mpeg_audio — whether media/mpeg_audio.py finds the bundled libavcodec,
+               of a known major; where it does, a .mpg of a tone written by
+               tools/make_mpg.py (the bundled mp2 encoder) and read back.
+ 24. decode_shrink — the flagship's patch VideoVAE (seeded, fp32) decoding
+               2 clips to 40x112x120, smaller than its natural 48x128x128
+               (the antialiased resize of ops/resize.py): within
+               DECODE_SHRINK_REL_TOL of the same decode on the CPU, the
+               resize alone within RESIZE_REL_TOL, its ms beside the
+               natural decode's.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -2680,10 +2704,12 @@ RING_SHAPE = (8, 8, 422, 128)
 # (layout, the config overlay of the layout and of its one-process
 # reference): context pads N to 422, so its reference pads too
 # (seq_multiple 2: the same global dropout draws); pipelined training needs
-# dropout 0, as the JAX package's
+# dropout 0, as the JAX package's; model 2 steps at the constant LR (3e-4,
+# scheduler none) so that its parameters after the steps show its sharded
+# AdamW (the warmup's LR is 0, then 3e-7)
 MULTI_RANK_LAYOUTS = {
     "data2": ({"data": 2}, {}),
-    "model2": ({"data": 1, "model": 2}, {}),
+    "model2": ({"data": 1, "model": 2}, {"training": {"scheduler": {"name": "none"}}}),
     "context2": ({"data": 1, "context": 2, "context_flash": True},
                  {"model": {"core": {"seq_multiple": 2}}}),
     "pipe2": ({"data": 1, "pipe": 2, "pipe_microbatches": 2},
@@ -2708,6 +2734,19 @@ MULTI_RANK_SAMPLE_REL_TOL = 2e-2
 # weights would be 200 MB a layout)
 MULTI_RANK_GRADS = ("core.blocks.0.attn.qkv.weight", "core.blocks.15.attn.qkv.weight",
                     "core.blocks.7.mlp.fc1.weight", "adapt_v.proj.weight")
+# model 2's parameters and EMA after two steps at LR 3e-4 (an Adam step moves
+# a parameter by up to ~3e-4) against one process's AdamW (trainer.AdamW
+# without a group) and EMA update on the layout's gathered gradients,
+# clipped by the layout's norm (held to one process's separately), from the
+# gathered start: the standing AdamW tolerance
+MULTI_RANK_PARAM_ABS_TOL = 1e-6
+# a rank's attention under model 2: its 4 of the flagship's 8 heads
+TP_BLOCK_SHAPE = (8, 4, 421, 128)
+# where model 2's ranks write their checkpoint for one process to restore
+TP_CKPT_DIR = REPO / "runs" / "chip_smoke_tp_ckpt"
+# the state (parameters, gradients, EMA, Adam moments) a rank holds, by
+# bytes per element: fp32, and bf16 moments (specificity8's mv_dtype)
+STATE_ITEMSIZE = {"params": 4, "grads": 4, "ema": 4, "mu": 2, "nu": 2}
 
 
 def multi_rank_config(layout: dict, overlay: dict) -> dict:
@@ -2742,13 +2781,43 @@ def multi_rank_inputs():
     return batch, draws, frames
 
 
-def multi_rank_step(fa, name: str, mesh=None) -> dict:
+def tree_digest(tree, prefix: str = "") -> dict:
+    """{path: sha256 of its bytes} of a checkpoint tree (tensors of any
+    dtype, ints)."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(tree_digest(v, path))
+        elif isinstance(v, torch.Tensor):
+            raw = v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+            out[path] = f"{v.dtype}{tuple(v.shape)}:" + hashlib.sha256(raw.tobytes()).hexdigest()
+        else:
+            out[path] = repr(v)
+    return out
+
+
+def multi_rank_step(fa, name: str, mesh=None, ckpt_dir=None) -> dict:
     """One flagship train step of layout `name` (or its one-process
     reference without `mesh`) on the card from the seeded init, the shared
     batch and draws, audio the target: its metrics, the gradients of
-    MULTI_RANK_GRADS, the launches, ms of a second step, peak memory."""
+    MULTI_RANK_GRADS (gathered whole under model 2), the launches, ms of a
+    later step, peak memory and the bytes of the state this rank holds.
+    Without `mesh`, also the number of elements of the split parameters.
+    Under model 2: a second step, then the parameters and EMA (gathered)
+    against one process's AdamW on the two steps' gathered gradients
+    (``adamw_max_abs_err``), both ranks' torch.cuda.memory_allocated() read
+    between two barriers, and with `ckpt_dir` the gathered checkpoint tree,
+    which rank 0 writes there, as digests."""
     import torch
+    import torch.distributed as dist
 
+    from multimodal_diffusion_torch.parallel.sharding import is_split, tp_gather
+    from multimodal_diffusion_torch.train import checkpoint as TC
     from multimodal_diffusion_torch.train.trainer import create_trainer
 
     layout, overlay = MULTI_RANK_LAYOUTS[name]
@@ -2757,15 +2826,28 @@ def multi_rank_step(fa, name: str, mesh=None) -> dict:
     bundle = create_trainer(cfg, device="cuda", batch_size=MULTI_RANK_CLIPS, seed=0,
                             mesh=mesh)
     st = bundle.state
-    taken = {}
+    group = None if mesh is None else mesh.group("model")
+    check = group is not None  # model 2: its sharded AdamW against one process's
+    taken, grad_bytes, seen = {}, [], []
     step = st.optimizer.step
 
+    def whole(named):
+        return {n: tp_gather(n, t.detach(), group).to("cpu", copy=True) for n, t in named}
+
     def keep(grads):
-        taken.update({n: g.float().cpu().numpy() for n, g in zip(st.optimizer.names, grads)
-                      if n in MULTI_RANK_GRADS})
+        if not grad_bytes:
+            grad_bytes.append(sum(g.numel() * g.element_size() for g in grads
+                                  if g is not None))
+        taken.update({n: tp_gather(n, g, group).float().cpu().numpy()
+                      for n, g in zip(st.optimizer.names, grads) if n in MULTI_RANK_GRADS})
+        if check and len(seen) < 2:
+            seen.append(whole((n, torch.zeros_like(p) if g is None else g)
+                              for n, p, g in zip(st.optimizer.names, st.optimizer.params, grads)))
         return step(grads)
 
     st.optimizer.step = keep
+    if check:
+        start, start_ema = whole(bundle.model.named_parameters()), whole(st.ema.items())
     d = {k: torch.as_tensor(v).cuda() for k, v in draws.items()}
     torch.cuda.synchronize()
     reset_launch_counts(fa)
@@ -2773,17 +2855,120 @@ def multi_rank_step(fa, name: str, mesh=None) -> dict:
     metrics = bundle.train_step(st, batch, 0.0, d)
     torch.cuda.synchronize()
     launches = launch_counts(fa)
+    grads = dict(taken)
+    if check:
+        norms = [metrics["grad_norm"], bundle.train_step(st, batch, 0.0, d)["grad_norm"]]
+        after, after_ema = whole(bundle.model.named_parameters()), whole(st.ema.items())
     t0 = time.perf_counter()
     bundle.train_step(st, batch, 0.0, d)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": taken,
+    opt = st.optimizer
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
            "launches": launches, "step_ms": ms,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del bundle, st, keep
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "state_bytes": {"params": nbytes(bundle.model.parameters()),
+                           "grads": grad_bytes[0], "ema": nbytes(st.ema.values()),
+                           "mu": nbytes(opt.mu), "nu": nbytes(opt.nu)}}
+    if mesh is None:
+        out["split_numel"] = sum(p.numel() for n, p in bundle.model.named_parameters()
+                                 if is_split(n))
+    if group is not None:
+        dist.barrier()
+        out["allocated_bytes"] = torch.cuda.memory_allocated()
+        dist.barrier()
+        if ckpt_dir is not None:
+            tree = TC.state_to_tree(st)  # every rank of the group gathers
+            if dist.get_rank() == 0:
+                TC.CheckpointManager(ckpt_dir).save(tree["step"], tree)
+                out["tree_digest"] = tree_digest(tree)
+            del tree
+            dist.barrier()
+    hyper = dict(lr_schedule=opt.lr_schedule, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.wd, clip_norm=opt.clip_norm, mv_dtype=opt.mv_dtype,
+                 accum_steps=opt.accum_steps)
+    del bundle, st, keep, opt
     gc.collect()
     torch.cuda.empty_cache()
+    if check:
+        out["adamw_max_abs_err"] = one_process_adamw_err(
+            hyper, float(cfg["training"]["ema"]["decay"]), start, start_ema, seen, norms,
+            after, after_ema)
+        del start, start_ema, seen, after, after_ema
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
+
+
+def one_process_adamw_err(hyper: dict, decay: float, start: dict, start_ema: dict,
+                          grads_by_step: list, norms: list, after: dict,
+                          after_ema: dict) -> float:
+    """The largest |difference| of a layout's parameters and EMA after its
+    steps (`after`, `after_ema`, gathered whole) from one process's: the
+    trainer's AdamW without a group, with `hyper`, and the trainer's EMA
+    update, from the gathered start, on each step's gathered gradients,
+    clipped by that step's norm of the layout (`norms`). On the card."""
+    import torch
+
+    from multimodal_diffusion_torch.train.trainer import AdamW
+
+    params = {n: t.cuda() for n, t in start.items()}
+    ema = {n: t.cuda() for n, t in start_ema.items()}
+    ref = AdamW(list(params.items()), **hyper)
+    for grads, norm in zip(grads_by_step, norms):
+        ref.grad_norm = lambda _grads, norm=norm: norm
+        ref.step([grads[n].cuda() for n in params])
+        shadow = list(ema.values())
+        torch._foreach_mul_(shadow, decay)
+        torch._foreach_add_(shadow, [params[n] for n in ema], alpha=1.0 - decay)
+    return max(float((got.cuda() - want).abs().max())
+               for got_tree, want_tree in ((after, params), (after_ema, ema))
+               for got, want in ((got_tree[n], want_tree[n]) for n in want_tree))
+
+
+def restored_digest(ckpt_dir) -> dict:
+    """The digests of the tree that one process (a model-2 layout's
+    config without the layout) holds after restoring the latest checkpoint
+    under `ckpt_dir`."""
+    import torch
+
+    from multimodal_diffusion_torch.train import checkpoint as TC
+    from multimodal_diffusion_torch.train.trainer import create_trainer
+
+    layout, overlay = MULTI_RANK_LAYOUTS["model2"]
+    bundle = create_trainer(multi_rank_config({}, overlay), device="cuda",
+                            batch_size=MULTI_RANK_CLIPS, seed=0)
+    TC.restore_state(bundle.state, TC.CheckpointManager(ckpt_dir).restore())
+    digest = tree_digest(TC.state_to_tree(bundle.state))
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return digest
+
+
+def n002_weights_(model, gen) -> None:
+    """spec8_v2a's N(0, 0.02) weights, drawn from `gen` at the one-process
+    shapes in parameter order: a tensor-parallel part keeps its part of the
+    whole draw, so a layout gets one process's weights."""
+    import torch
+
+    from multimodal_diffusion_torch.models.mmdit import HotDense
+    from multimodal_diffusion_torch.parallel.sharding import tp_part
+
+    hot = {f"{m}.{leaf}": mod for m, mod in model.named_modules()
+           if isinstance(mod, HotDense) and mod.split for leaf in ("weight", "bias")}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            mod = hot.get(n)
+            if mod is None:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            else:
+                whole = torch.randn(mod.whole_shape(n.rsplit(".", 1)[1]), generator=gen) * 0.02
+                p.copy_(tp_part(n, whole, p.shape, mod.tp_n, mod.tp_i))
 
 
 def multi_rank_sample(mesh_kw, frames):
@@ -2803,10 +2988,7 @@ def multi_rank_sample(mesh_kw, frames):
     mesh = make_mesh(**mesh_kw) if mesh_kw else None
     model = build_components(cfg, device="cuda", mesh=mesh if mesh_kw and
                              mesh_kw.get("context", 1) > 1 else None)
-    gen = torch.Generator().manual_seed(0)  # spec8_v2a's N(0, 0.02) weights
-    with torch.no_grad():
-        for p in model.parameters():
-            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    n002_weights_(model, torch.Generator().manual_seed(0))
     out = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
                                prompt_video=frames, device="cuda", mesh=mesh,
                                generator=torch.Generator().manual_seed(5))
@@ -2816,6 +2998,45 @@ def multi_rank_sample(mesh_kw, frames):
     del model
     torch.cuda.empty_cache()
     return out["audio"], den
+
+
+def multi_rank_int8_sample(fa, mesh_kw, frames) -> dict:
+    """A MULTI_RANK_SAMPLE_STEPS-step v2a flagship batch under
+    model.core.quant int8 with bf16 serving weights (spec8_v2a's N(0, 0.02)
+    weights, then cast) on the mesh of `mesh_kw` (one process without it):
+    the wav, its seconds, the launches, and each hot projection's [N, K]
+    that torch._int_mm multiplies (each must be servable)."""
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_clip import (build_components,
+                                                              sample_one_direction)
+    from multimodal_diffusion_torch.models.mmdit import HotDense
+    from multimodal_diffusion_torch.ops.quant import int_mm_unservable
+    from multimodal_diffusion_torch.parallel.mesh import make_mesh
+
+    cfg = multi_rank_config(mesh_kw or {}, {"model": {"core": {"quant": "int8"}}})
+    cfg["paths"] = {}
+    cfg["diffusion"]["audio"]["sampler_steps"] = MULTI_RANK_SAMPLE_STEPS
+    mesh = make_mesh(**mesh_kw) if mesh_kw else None
+    model = build_components(cfg, device="cuda", mesh=mesh, bf16_params=True)
+    n002_weights_(model, torch.Generator().manual_seed(0))
+    shapes = sorted({tuple(m.weight.shape) for m in model.core.modules()
+                     if isinstance(m, HotDense)})
+    bad = [why for n_out, k_in in shapes if (why := int_mm_unservable(k_in, n_out))]
+    if bad:
+        raise AssertionError(f"int8 under {mesh_kw}: {bad}")
+    reset_launch_counts(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
+                               prompt_video=frames, device="cuda", mesh=mesh,
+                               generator=torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    res = {"wav": out["audio"], "s": time.perf_counter() - t0,
+           "launches": launch_counts(fa), "weight_shapes": [list(x) for x in shapes]}
+    del model
+    torch.cuda.empty_cache()
+    return res
 
 
 def ring_inputs():
@@ -2886,10 +3107,12 @@ def multi_rank_body(rank: int, world: int) -> dict:
     res["steps"] = {}
     for name, (layout, overlay) in MULTI_RANK_LAYOUTS.items():
         mesh = make_mesh_from_config({"parallel": layout})
-        res["steps"][name] = multi_rank_step(fa, name, mesh)
+        res["steps"][name] = multi_rank_step(fa, name, mesh,
+                                             TP_CKPT_DIR if name == "model2" else None)
     _, _, frames = multi_rank_inputs()
     res["sample_data2"] = multi_rank_sample({"data": 2}, frames)
     res["sample_context2"] = multi_rank_sample({"data": 1, "context": 2}, frames)
+    res["int8_model2"] = multi_rank_int8_sample(fa, {"data": 1, "model": 2}, frames)
     return res
 
 
@@ -2910,8 +3133,11 @@ def multi_rank_phase(fa, cycles_per_s, smi):
     from multimodal_diffusion_torch.parallel.launch import run_ranks
     from multimodal_diffusion_torch.tools.dryrun_multichip import dryrun_multichip
 
+    import shutil
+
     for name in fa.SOURCES:  # built once here, before the ranks load them
         fa._library(name)
+    shutil.rmtree(TP_CKPT_DIR, ignore_errors=True)
     t_phase = time.perf_counter()
     ranks = run_ranks(multi_rank_body, MULTI_RANK_WORLD, backend=MULTI_RANK_BACKEND,
                       timeout=600, threads=4)
@@ -2999,6 +3225,50 @@ def multi_rank_phase(fa, cycles_per_s, smi):
             "launches_expected": want, "one_process_launches": ref["launches"],
             "errors": errs}
 
+    # model 2: each rank holds its parts (the exact bytes), the parameters
+    # after the steps, both ranks' allocations at once, the checkpoint in one
+    # process, the kernels at a rank's heads
+    ref = refs[repr(MULTI_RANK_LAYOUTS["model2"][1])]
+    want_bytes = {k: v - STATE_ITEMSIZE[k] * ref["split_numel"] // 2
+                  for k, v in ref["state_bytes"].items()}
+    tp = {"state_bytes": [r["steps"]["model2"]["state_bytes"] for r in ranks],
+          "state_bytes_expected": want_bytes, "one_process_state_bytes": ref["state_bytes"],
+          "split_numel": ref["split_numel"]}
+    for r in ranks:
+        got = r["steps"]["model2"]
+        if got["state_bytes"] != want_bytes:
+            raise AssertionError(f"model2 rank {r['rank']} holds {got['state_bytes']} bytes, "
+                                 f"expected {want_bytes}")
+        err = got["adamw_max_abs_err"]
+        tp.setdefault("params_after_max_abs_err", []).append(err)
+        if not err <= MULTI_RANK_PARAM_ABS_TOL:
+            raise AssertionError(f"model2 rank {r['rank']}: parameters and EMA after two steps "
+                                 f"{err} from one process's AdamW on its gradients "
+                                 f"(tol {MULTI_RANK_PARAM_ABS_TOL})")
+    tp["allocated_bytes_at_once"] = [r["steps"]["model2"]["allocated_bytes"] for r in ranks]
+    if not all(b > 0 for b in tp["allocated_bytes_at_once"]):
+        raise AssertionError(f"two ranks on one card: {tp['allocated_bytes_at_once']}")
+    emit({"phase": "multi_rank_shared_card", "device": smi,
+          "memory_allocated_bytes_by_rank_at_once": tp["allocated_bytes_at_once"],
+          "note": "two processes hold memory on the one card at the same moment"})
+    one_digest = restored_digest(TP_CKPT_DIR)
+    shutil.rmtree(TP_CKPT_DIR, ignore_errors=True)
+    written = ranks[0]["steps"]["model2"]["tree_digest"]
+    if one_digest != written:
+        bad = sorted(k for k in set(written) | set(one_digest)
+                     if written.get(k) != one_digest.get(k))
+        raise AssertionError(f"model2's checkpoint restored in one process differs: {bad[:5]}")
+    tp["checkpoint_to_one_process_bit_equal"] = True
+    tp["checkpoint_tensors"] = len(written)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    tq, tk, tv = (torch.randn(TP_BLOCK_SHAPE, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    n_all = [TP_BLOCK_SHAPE[2]] * TP_BLOCK_SHAPE[0]
+    to, tlse, tp_fwd = forward_case(fa, "model2_block", tq, tk, tv, None, n_all, cycles_per_s)
+    tdout = torch.randn(TP_BLOCK_SHAPE, generator=g, device="cuda").to(torch.bfloat16)
+    tp_bwd = backward_case(fa, "model2_block", tq, tk, tv, None, to, tlse, tdout, n_all,
+                           cycles_per_s)
+
     # the sampled batches against one process
     _, _, frames = multi_rank_inputs()
     one, one_den = multi_rank_sample(None, frames)
@@ -3016,6 +3286,23 @@ def multi_rank_phase(fa, cycles_per_s, smi):
     if any(denoise_err[k] > SPEC8_DENOISE_REL_TOL[k] for k in denoise_err):
         raise AssertionError(f"the denoiser forward under context 2 vs one process: "
                              f"{denoise_err} (tol {SPEC8_DENOISE_REL_TOL})")
+    # int8 under model 2: one process's int8 batch, bit for bit
+    one8 = multi_rank_int8_sample(fa, None, frames)
+    want8 = {"flash_fwd": MULTI_RANK_SAMPLE_STEPS * 16, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    for r in [{"rank": "one process", "int8_model2": one8}] + ranks:
+        got = r["int8_model2"]
+        if got["launches"] != want8:
+            raise AssertionError(f"int8 batch ({r['rank']}): launches {got['launches']}, "
+                                 f"expected {want8}")
+        if not (np.isfinite(got["wav"]).all() and np.array_equal(got["wav"], one8["wav"])):
+            raise AssertionError(f"int8 under model 2 (rank {r['rank']}) is not one process's "
+                                 f"int8 batch: max diff "
+                                 f"{float(np.abs(got['wav'] - one8['wav']).max())}")
+    tp["int8_sample"] = {"bit_equal_to_one_process": True,
+                         "s": [r["int8_model2"]["s"] for r in ranks], "one_process_s": one8["s"],
+                         "weight_shapes_per_rank": ranks[0]["int8_model2"]["weight_shapes"],
+                         "one_process_weight_shapes": one8["weight_shapes"],
+                         "launches_per_rank": ranks[0]["int8_model2"]["launches"]}
 
     # the dry run, 4 ranks on this card
     t0 = time.perf_counter()
@@ -3023,19 +3310,120 @@ def multi_rank_phase(fa, cycles_per_s, smi):
     dry_s = time.perf_counter() - t0
     emit({"phase": "multi_rank", "world": MULTI_RANK_WORLD, "backend": MULTI_RANK_BACKEND,
           "device": smi, "note": "two ranks share one card's SMs and gloo moves bytes through "
-          "the host: these times are no scaling figures; NCCL across cards is unverified",
+          "the host: these times are no scaling figures; NCCL across cards runs in "
+          "tests/test_torch_nccl_gpu.py",
           "ring": {"shape_per_rank": [B, H, n, Dh], "whole_shape": list(RING_SHAPE),
                    "rel_err": ring_err, "bit_identical": True,
                    "ring_ms": [r["ring_ms"] for r in ranks], "whole_ms": whole_ms,
                    "launches_per_rank": ranks[0]["ring_launches"]},
-          "layouts": layouts, "sample_rel_err": sample_err,
+          "layouts": layouts, "model2": tp, "sample_rel_err": sample_err,
           "sample_tol": MULTI_RANK_SAMPLE_REL_TOL, "context_denoise_rel_err": denoise_err,
           "context_denoise_tol": SPEC8_DENOISE_REL_TOL, "dryrun": dry, "dryrun_s": dry_s,
           "spawned_pair_s": spawn_s, "phase_s": time.perf_counter() - t_phase})
     paths = {f"multi_rank_{name}": ranks[0]["steps"][name]["launches"]
              for name in MULTI_RANK_LAYOUTS}
     paths["multi_rank_ring"] = ranks[0]["ring_launches"]
-    return paths, {"fwd": fwd_rec, **bwd_recs}
+    paths["multi_rank_int8_model2"] = ranks[0]["int8_model2"]["launches"]
+    return paths, {"ring_block": {"fwd": fwd_rec, **bwd_recs},
+                   "model2_block": {"fwd": tp_fwd, **tp_bwd}}
+
+
+def mpeg_audio_phase() -> None:
+    """media/mpeg_audio.py on this machine: whether the bundled libavcodec is
+    there and of a known major; where it is, a .mpg of a 0.5 s tone written
+    by tools/make_mpg.py (the bundled mp2 encoder) and read back: 32 kHz,
+    finite, the tone within 0.99 correlation."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from multimodal_diffusion_torch.media import mpeg_audio
+    from multimodal_diffusion_torch.tools import make_mpg
+
+    rec = {"phase": "mpeg_audio", "available": mpeg_audio.available()}
+    try:
+        rec["avcodec_major"] = mpeg_audio.avcodec_major()
+    except RuntimeError as err:
+        rec["unavailable_because"] = str(err)
+    if rec["available"]:
+        (REPO / "runs").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_mpg_", dir=REPO / "runs"))
+        try:
+            pcm = make_mpg.tone(0.5)
+            make_mpg.write_mpg(work / "tone.mpg", make_mpg.encode_mp2(pcm))
+            t0 = time.perf_counter()
+            wav, sr = mpeg_audio.read_mpeg_audio(work / "tone.mpg")
+            rec["read_s"] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        ref = pcm.astype(np.float32) / 32768.0
+        n = min(len(wav), len(ref))
+        corr = max(float(np.corrcoef(wav[d:n], ref[:n - d])[0, 1]) for d in range(1200))
+        rec.update(samples=len(wav), sr=sr, tone_correlation=corr)
+        if not (sr == make_mpg.SR and np.isfinite(wav).all() and corr > 0.99):
+            raise AssertionError(f"mpeg_audio read back {rec}")
+    emit(rec)
+
+
+# the flagship clip (48 frames of 128x128, latents 12x16x16) decoded to a
+# smaller size on every axis; the card's decode against the same decode on
+# the CPU (fp32, TF32 off): max |diff| / max |ref|, the 3-D convolutions'
+# tolerance; the resize alone on the card against the CPU
+DECODE_SHRINK_CLIPS, DECODE_SHRINK_SIZE = 2, (40, 112, 120)
+DECODE_SHRINK_REL_TOL, RESIZE_REL_TOL = 1e-4, 1e-5
+
+
+def decode_shrink_phase(cycles_per_s, smi) -> None:
+    """The patch VideoVAE at the flagship's width (configs/specificity8.yaml's
+    video block, seeded init, fp32) decoding latents to DECODE_SHRINK_SIZE,
+    smaller than its natural 48x128x128: the antialiased resize of
+    ops/resize.py (jax.image.resize's), on the card against the CPU, and its
+    ms beside the natural-size decode's."""
+    import copy
+
+    import torch
+
+    from multimodal_diffusion_torch.models.diffusion import init_weights
+    from multimodal_diffusion_torch.models.vae_video3d import VideoVAE, VideoVAEConfig
+    from multimodal_diffusion_torch.ops.resize import resize_antialiased
+    from multimodal_diffusion_torch.utils.io import specificity8_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = specificity8_config()
+    vae = VideoVAE(VideoVAEConfig.from_dict(cfg["video"])).eval()
+    init_weights(vae, torch.Generator().manual_seed(0))
+    cpu_vae = copy.deepcopy(vae)
+    vae = vae.cuda()
+    c = vae.cfg
+    T, H, W = 48, *cfg["video"]["size"]
+    z = torch.randn((DECODE_SHRINK_CLIPS, c.lat_ch, T // c.t_down, H // c.s_down,
+                     W // c.s_down), generator=torch.Generator().manual_seed(1))
+    zc = z.cuda()
+    with torch.no_grad():
+        got = vae.decode(zc, DECODE_SHRINK_SIZE).cpu()
+        want = cpu_vae.decode(z, DECODE_SHRINK_SIZE)
+        natural = vae.decode(zc)
+        shrunk = resize_antialiased(natural, DECODE_SHRINK_SIZE, (2, 3, 4)).cpu()
+        shrunk_cpu = resize_antialiased(natural.cpu(), DECODE_SHRINK_SIZE, (2, 3, 4))
+        decode_err = float((got - want).abs().max() / want.abs().max())
+        resize_err = float((shrunk - shrunk_cpu).abs().max() / shrunk_cpu.abs().max())
+        ms = cuda_median_ms(lambda: vae.decode(zc, DECODE_SHRINK_SIZE), cycles_per_s, reps=10)
+        natural_ms = cuda_median_ms(lambda: vae.decode(zc), cycles_per_s, reps=10)
+        resize_ms = cuda_median_ms(
+            lambda: resize_antialiased(natural, DECODE_SHRINK_SIZE, (2, 3, 4)), cycles_per_s,
+            reps=10)
+    rec = {"phase": "decode_shrink", "device": smi, "arch": c.arch, "clips": DECODE_SHRINK_CLIPS,
+           "latent": list(z.shape), "natural": [T, H, W], "out_size": list(DECODE_SHRINK_SIZE),
+           "shape": list(got.shape), "decode_rel_err_vs_cpu": decode_err,
+           "resize_rel_err_vs_cpu": resize_err, "decode_ms": ms, "natural_decode_ms": natural_ms,
+           "resize_ms": resize_ms, "tol": [DECODE_SHRINK_REL_TOL, RESIZE_REL_TOL]}
+    emit(rec)
+    if got.shape != (DECODE_SHRINK_CLIPS, 3) + DECODE_SHRINK_SIZE or \
+            not torch.isfinite(got).all() or decode_err > DECODE_SHRINK_REL_TOL or \
+            resize_err > RESIZE_REL_TOL:
+        raise AssertionError(f"decode_shrink: {rec}")
 
 
 def main(argv=None) -> int:
@@ -3096,8 +3484,11 @@ def main(argv=None) -> int:
     by_path.update(pixel_phases(fa))
     by_path["spec8_remat"] = spec8_remat_phase(fa, smi)
     torch.cuda.empty_cache()
-    multi_paths, ring_cases = multi_rank_phase(fa, spin_cycles_per_s(), smi)
+    multi_paths, rank_cases = multi_rank_phase(fa, spin_cycles_per_s(), smi)
     by_path.update(multi_paths)
+    torch.cuda.empty_cache()
+    mpeg_audio_phase()
+    decode_shrink_phase(spin_cycles_per_s(), smi)
     torch.cuda.empty_cache()
 
     def launches_of(name):
@@ -3127,7 +3518,7 @@ def main(argv=None) -> int:
                   "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
            for name, rec in [(n, text_cases[n]["fwd"]) for n in ("t2i_sample", "t2a_sample")]
            + [(n, pixel_cases[n]["fwd"]) for n in ("pixel_sample", "pixel_train")]
-           + [("ring_block", ring_cases["fwd"])]}}]
+           + [(n, rank_cases[n]["fwd"]) for n in ("ring_block", "model2_block")]}}]
     for kernel, line in (("dkdv", 205), ("dq", 276)):
         rec = cases[("mvp_train", "bfloat16", kernel)]
         flag = cases[("flagship", "bfloat16", kernel)]
@@ -3149,7 +3540,8 @@ def main(argv=None) -> int:
                for where, rec in (("flagship", flag),
                                   ("t2i_train", text_cases["t2i_train"][kernel]),
                                   ("pixel_train", pixel_cases["pixel_train"][kernel]),
-                                  ("ring_block", ring_cases[kernel]))}})
+                                  ("ring_block", rank_cases["ring_block"][kernel]),
+                                  ("model2_block", rank_cases["model2_block"][kernel]))}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,12 @@
 
 The library is built on first use with the repo's ``native/Makefile`` rule
 (g++ and libjpeg), into the port's git-ignored
-``multimodal_diffusion_torch/_build/`` rather than ``native/build/``. It
-exposes:
+``multimodal_diffusion_torch/_build/`` rather than ``native/build/``: made in
+a private temporary directory and renamed into place, under a file lock
+that every process also takes before its first load, so processes that
+start together never load a half-written library. Where it cannot be built
+(no g++ or no ``jpeglib.h``) the datasets decode with PIL, as the JAX
+package's do. It exposes:
 
   decode_clip(paths, H, W)     -> float32 [3, T, H, W] in [0, 1]
   decode_clip_u8(paths, H, W)  -> uint8 [T, H, W, 3]
@@ -19,14 +23,20 @@ otherwise; the records path never imports this module.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+# where the Makefile is and where the library goes (module attributes: a
+# test points them at a copy of native/)
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _SO_PATH = _BUILD_DIR / "libavloader.so"
@@ -36,15 +46,53 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
+@contextmanager
+def build_lock():
+    """An exclusive ``flock`` on ``_build/avloader.lock``: held while one
+    process builds the library and while any process first loads it, so no
+    process loads a library that another is still writing."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "avloader.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _build() -> bool:
+    """make the library in a private directory, then rename it onto
+    _SO_PATH: a reader sees no file or a whole one. Call under build_lock."""
+    tmp = Path(tempfile.mkdtemp(prefix=".avloader-", dir=_BUILD_DIR))
     try:
         r = subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR), f"BUILD={_BUILD_DIR}"],
+            ["make", "-C", str(_NATIVE_DIR), f"BUILD={tmp}"],
             capture_output=True, text=True, timeout=120,
         )
-        return r.returncode == 0 and _SO_PATH.exists()
+        built = tmp / _SO_PATH.name
+        if r.returncode != 0 or not built.exists():
+            return False
+        os.replace(built, _SO_PATH)
+        return True
     except Exception:
         return False
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _open() -> Optional[ctypes.CDLL]:
+    """The library, built first when missing, loaded under build_lock; one
+    more build and load when a present file does not load (one left by a
+    build that was cut off)."""
+    with build_lock():
+        for attempt in range(2):
+            if (attempt or not _SO_PATH.exists()) and not _build():
+                return None
+            try:
+                return ctypes.CDLL(str(_SO_PATH))
+            except OSError:
+                continue
+    return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -53,11 +101,8 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not _SO_PATH.exists() and not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(str(_SO_PATH))
-        except OSError:
+        lib = _open()
+        if lib is None:
             return None
         for name, out_t in (("decode_clip_f32", ctypes.c_float),
                             ("decode_clip_u8", ctypes.c_ubyte)):

@@ -134,7 +134,10 @@ def build_components(cfg: Dict, params: Optional[Mapping] = None,
     (``cast_params_bf16``; inference only), as the JAX package's. A config
     with ``parallel.context > 1`` lays the core out over the ranks
     (``make_mesh_from_config``, unless `mesh` is given), as the JAX
-    package's build_components does.
+    package's build_components does. Under a `mesh` with 'model' > 1 each
+    rank holds only its part of the core's split projections: the whole
+    weights (a checkpoint's, its EMA, a JAX tree or the seeded init) are
+    cut as they load, before any bf16 cast.
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions

@@ -30,6 +30,7 @@ from torch import nn
 
 from ..ops import tokenize as tk
 from ..ops.schedule import prediction_target, q_sample
+from ..parallel.sharding import tp_part
 from .adapters import (
     Dense,
     LinearAdapter,
@@ -438,7 +439,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     projections), lecun-normal 2-D and 3-D convs, the codec's kaiming-uniform
     (a=0.2) 1-D convs, N(0, 0.02) embedding and position tables, zero
     biases, unit norm scales. Draws come from ``generator``, so a seed fixes
-    the weights (they are not the JAX package's draws)."""
+    the weights (they are not the JAX package's draws). A tensor-parallel
+    projection (``mmdit.HotDense`` under ``parallel.model``) draws its whole
+    weight, as one process does, and keeps its part: the ranks' parts join
+    into the one-process init, bit for bit."""
     def lecun_normal_(w: torch.Tensor) -> None:
         # flax lecun_normal: truncated at 2 std, std corrected for the cut
         std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
@@ -446,10 +450,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
     for name, mod in model.named_modules():
         if isinstance(mod, Dense):
+            # a tensor-parallel part: draw the whole weight, keep the part
+            split = getattr(mod, "split", None) is not None
+            w = torch.empty(mod.whole_shape("weight")) if split else mod.weight
             if name.startswith("vid_vae."):
-                lecun_normal_(mod.weight)
+                lecun_normal_(w)
             else:
-                nn.init.xavier_uniform_(mod.weight, generator=generator)
+                nn.init.xavier_uniform_(w, generator=generator)
+            if split:
+                mod.weight.copy_(tp_part(f"{name}.weight", w, mod.weight.shape, mod.tp_n,
+                                         mod.tp_i))
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, (Conv2d, Conv3d)):
             lecun_normal_(mod.weight)

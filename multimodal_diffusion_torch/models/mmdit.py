@@ -20,15 +20,20 @@ the draws after the step are unchanged.
 Under ``quant: "int8"`` the four hot projections (qkv, attention out, fc1,
 fc2) run W8A8 (``ops/quant.py``) on eval-mode passes, the JAX package's
 deterministic ones; a training pass is exactly the unquantized program.
+Under tensor parallelism the row-split projections take their absmax scales
+over the group and sum the int32 products, so the result is one process's,
+bit for bit.
 
-Layouts over a mesh of ranks (``parallel/mesh.py``; every parameter is held
-whole on every rank, each rank computes its part):
+Layouts over a mesh of ranks (``parallel/mesh.py``; each rank computes its
+part):
 
-  * ``model_axis`` (tensor parallel): a rank runs heads [i H/m, (i+1) H/m)
-    of q, k and v (whole heads of the fused qkv) and the same slice of the
-    MLP's hidden units; the attention out and fc2 projections take the
-    matching input rows and their partial outputs are summed over the
-    group (fp32) before the bias;
+  * ``model_axis`` (tensor parallel): a rank holds and runs only its part of
+    the four hot projections (``HotDense``), as a JAX device holds its shard:
+    heads [i H/m, (i+1) H/m) of q, k and v (whole heads of the fused qkv)
+    and the same slice of the MLP's hidden units; the attention out and fc2
+    projections hold the matching input columns and their partial outputs
+    are summed over the group (fp32, or int32 under int8) before the bias.
+    Every other parameter is whole on every rank;
   * ``context_axis`` (sequence parallel): the core pads N to
     lcm(seq_multiple, n_ctx) with masked keys, each rank keeps its token
     shard [B, N/n_ctx, d] through the blocks (norms, MLPs and projections
@@ -60,7 +65,7 @@ from ..ops.quant import Int8Weight, int8_linear
 from ..ops.ring_attention import ring_attention_local
 from ..ops.tokenize import pad_to_multiple
 from ..parallel import comm
-from ..parallel.sharding import split_part
+from ..parallel.sharding import tp_part
 from .adapters import Dense
 
 QUANT_MODES = ("none", "int8")
@@ -188,22 +193,6 @@ def rotary_embed(q: torch.Tensor, k: torch.Tensor, max_period: float = 10_000.0,
     return rot(q), rot(k)
 
 
-class HotDense(Dense):
-    """A Dense of the core's four hot projections: under quant "int8" an
-    eval-mode pass runs ``int8_linear`` on the weight quantized once per
-    parameter version; a training pass is the plain Dense."""
-
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, quant: str = "none"):
-        super().__init__(d_in, d_out, dtype)
-        self.int8_weight = Int8Weight() if quant == "int8" else None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.int8_weight is None or self.training:
-            return super().forward(x)
-        return int8_linear(x, self.weight, self.bias, self.dtype,
-                           self.int8_weight(self.weight, self.dtype))
-
-
 class CoreLayout:
     """Where one rank sits in the core's layout over a mesh: the tensor
     parallel group (``tp_*``), the context group (``ctx_*``, with the ring's
@@ -231,22 +220,74 @@ class CoreLayout:
 NO_LAYOUT = CoreLayout()
 
 
-def _column_split_linear(dense: "HotDense", x: torch.Tensor, groups: int, n: int,
-                         i: int) -> torch.Tensor:
-    """A projection whose output features are split: this rank's rows of the
-    weight and bias (part i of n of each of `groups` row blocks)."""
-    w = split_part(dense.weight, 0, groups, n, i)
-    b = split_part(dense.bias, 0, groups, n, i)
-    return F.linear(x.to(dense.dtype), w.to(dense.dtype), b.to(dense.dtype))
+class HotDense(Dense):
+    """A Dense of the core's four hot projections: under quant "int8" an
+    eval-mode pass runs ``int8_linear`` on the weight quantized once per
+    parameter version; a training pass is the plain Dense.
+
+    Under a tensor-parallel layout the parameters are this rank's part only
+    (``split``); which part is ``parallel/sharding.py``'s rule, by
+    parameter name:
+
+      * "out" (qkv, fc1): this rank's rows of the weight and bias; the
+        input enters through copy_to_group, so its gradient is summed over
+        the group;
+      * "in" (attention out, fc2): this rank's input columns of the weight,
+        the bias whole; the partial products are summed over the group
+        (``_row_split_linear``).
+
+    ``load_state_dict`` takes the whole tensors (this rank's part is cut by
+    ``sharding.tp_part``) or the parts; ``whole_shape`` gives
+    ``init_weights`` the shape of the one-process init it draws."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, quant: str = "none",
+                 split: Optional[str] = None, layout: CoreLayout = NO_LAYOUT):
+        n = 1 if split is None else layout.tp_n
+        super().__init__(d_in // n if split == "in" else d_in,
+                         d_out // n if split == "out" else d_out, dtype)
+        self._whole = {"weight": (d_out, d_in), "bias": (d_out,)}
+        self.split = split if n > 1 else None
+        self.tp_n = n
+        self.tp_i = layout.tp_i if self.split else 0
+        self.tp_group = layout.tp_group if self.split else None
+        self.int8_weight = (Int8Weight(self.tp_group if self.split == "in" else None)
+                            if quant == "int8" else None)
+
+    def whole_shape(self, leaf: str) -> Tuple[int, ...]:
+        return self._whole[leaf]
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        if self.split is not None:
+            for leaf in ("weight", "bias"):
+                t = state_dict.get(prefix + leaf)
+                if t is not None:
+                    state_dict[prefix + leaf] = tp_part(
+                        prefix + leaf, t, getattr(self, leaf).shape, self.tp_n, self.tp_i)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        int8 = self.int8_weight is not None and not self.training
+        if self.split == "in":
+            return _row_split_linear(self, x, int8)
+        if self.split == "out":
+            x = comm.copy_to_group(x, self.tp_group)
+        if not int8:
+            return super().forward(x)
+        return int8_linear(x, self.weight, self.bias, self.dtype,
+                           self.int8_weight(self.weight, self.dtype))
 
 
-def _row_split_linear(dense: "HotDense", x: torch.Tensor, n: int, i: int, group) -> torch.Tensor:
-    """A projection whose input features are split over `group`: this rank's
-    input columns of the weight, the partial products summed over the
-    group in fp32, then the bias, in dense.dtype."""
-    w = split_part(dense.weight, 1, 1, n, i)
-    part = F.linear(x.to(dense.dtype), w.to(dense.dtype))
-    return (comm.reduce_from_group(part, group) + dense.bias.float()).to(dense.dtype)
+def _row_split_linear(dense: HotDense, x: torch.Tensor, int8: bool) -> torch.Tensor:
+    """A projection whose input features are split over the group: this
+    rank's columns of the weight, the partial products summed over the
+    group in fp32, then the bias, in dense.dtype. Under int8 the scales are
+    the group's (absmax over the whole row) and the int32 products are
+    summed before the rescale and the bias: one process's result."""
+    if int8:
+        return int8_linear(x, dense.weight, dense.bias, dense.dtype,
+                           dense.int8_weight(dense.weight, dense.dtype), group=dense.tp_group)
+    part = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    return (comm.reduce_from_group(part, dense.tp_group) + dense.bias.float()).to(dense.dtype)
 
 
 class Attention(nn.Module):
@@ -268,8 +309,8 @@ class Attention(nn.Module):
         if n_heads % layout.tp_n:
             raise ValueError(f"{n_heads} heads not divisible by parallel.model={layout.tp_n}")
         self.n_heads, self.rope, self.layout = n_heads, rope, layout
-        self.qkv = HotDense(d, 3 * d, dtype, quant)
-        self.out = HotDense(d, d, dtype, quant)
+        self.qkv = HotDense(d, 3 * d, dtype, quant, "out", layout)
+        self.out = HotDense(d, d, dtype, quant, "in", layout)
         self.attn_drop = Dropout(attn_dropout)
         self.resid_drop = Dropout(resid_dropout)
 
@@ -292,12 +333,7 @@ class Attention(nn.Module):
                           f"length {N} is not divisible — falling back to DENSE attention "
                           f"for this call", RuntimeWarning, stacklevel=2)
         H = self.n_heads // L.tp_n
-        if L.tp_n > 1:
-            qkv = _column_split_linear(self.qkv, comm.copy_to_group(x, L.tp_group), 3,
-                                       L.tp_n, L.tp_i)
-        else:
-            qkv = self.qkv(x)
-        qkv = qkv.reshape(B, N, 3, H, -1)
+        qkv = self.qkv(x).reshape(B, N, 3, H, -1)
         # head views of the one projection; unbind's backward stacks the
         # three grads into one qkv-shaped buffer
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, H, N, Dh]
@@ -321,9 +357,6 @@ class Attention(nn.Module):
             out = multi_head_attention(q, k, v, key_padding_mask=key_padding_mask,
                                        use_kernel=use_kernel)
         out = out.transpose(1, 2).reshape(B, N, -1)
-        if L.tp_n > 1:
-            return self.resid_drop(_row_split_linear(self.out, out, L.tp_n, L.tp_i,
-                                                     L.tp_group))
         return self.resid_drop(self.out(out))
 
 
@@ -339,22 +372,15 @@ class MLP(nn.Module):
         hidden = int(d * mlp_ratio)
         if hidden % layout.tp_n:
             raise ValueError(f"MLP width {hidden} not divisible by parallel.model={layout.tp_n}")
-        self.layout = layout
-        self.fc1 = HotDense(d, hidden, dtype, quant)
-        self.fc2 = HotDense(hidden, d, dtype, quant)
+        self.fc1 = HotDense(d, hidden, dtype, quant, "out", layout)
+        self.fc2 = HotDense(hidden, d, dtype, quant, "in", layout)
         self.approximate = "none" if gelu_exact else "tanh"
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        L = self.layout
-        if L.tp_n == 1:
-            h = self.drop1(F.gelu(self.fc1(x), approximate=self.approximate))
-            return self.drop2(self.fc2(h))
-        h = _column_split_linear(self.fc1, comm.copy_to_group(x, L.tp_group), 1,
-                                 L.tp_n, L.tp_i)
-        h = self.drop1(F.gelu(h, approximate=self.approximate))
-        return self.drop2(_row_split_linear(self.fc2, h, L.tp_n, L.tp_i, L.tp_group))
+        h = self.drop1(F.gelu(self.fc1(x), approximate=self.approximate))
+        return self.drop2(self.fc2(h))
 
 
 class Block(nn.Module):
@@ -461,8 +487,6 @@ class MMDiT(nn.Module):
         self.cfg = cfg
         L = self.layout = CoreLayout(cfg.mesh, cfg.model_axis, cfg.context_axis,
                                      cfg.context_flash, cfg.pipe_axis, cfg.pipe_microbatches)
-        if L.tp_n > 1 and cfg.quant != "none":
-            raise NotImplementedError("model.core.quant int8 under parallel.model > 1")
         self.token_drop = TokenDropout(cfg.token_dropout)
         self.blocks = nn.ModuleList(
             Block(cfg.d_model, cfg.n_heads, cfg.mlp_ratio, cfg.norm, cfg.rope,

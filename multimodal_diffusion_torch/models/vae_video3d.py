@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resize import resize_antialiased
 from .adapters import Dense
 from .mmdit import LayerNorm
 
@@ -118,6 +119,19 @@ class ConvBlock3D(nn.Module):
         n = self.norm
         return F.group_norm(x.float(), n.num_groups, n.weight.float(), n.bias.float(),
                             n.eps).to(self.dtype)
+
+
+def _resize(x: torch.Tensor, size: Tuple[int, int, int]) -> torch.Tensor:
+    """[B, C, T, H, W] resized to `size` as ``jax.image.resize(...,
+    "trilinear")``: trilinear with half-pixel centres (``F.interpolate``)
+    when no axis shrinks, else the antialiased triangle kernel on every axis
+    that changes (``ops/resize.py``). When enlarging the antialiased kernel
+    is the same function; ``F.interpolate`` is kept there only for the
+    enlarging path's bits, which earlier tests pin, and its speed (one
+    kernel on the card against three dense contractions)."""
+    if all(n >= m for n, m in zip(size, x.shape[2:])):
+        return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+    return resize_antialiased(x, size, (2, 3, 4))
 
 
 class VideoVAE(nn.Module):
@@ -236,27 +250,23 @@ class VideoVAE(nn.Module):
                out_size: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
         """z: [B, Cv, T', H', W'] -> x_hat: [B, 3, T, H, W] in [0,1] (sigmoid)
         or [-1,1] (tanh). (T, H, W) is the latent grid times the downsample
-        factors, or ``out_size``: then the result is enlarged trilinearly
-        (half-pixel centres) to it, as the reconstruction of a clip that
-        ``encode`` center-cropped. An ``out_size`` smaller than the natural
-        size along any axis raises ValueError: shrinking is not ported (the
-        JAX package's resize antialiases there, ``F.interpolate`` does not)."""
+        factors, or ``out_size``: the patch arch resizes its decoded frames
+        to it, the conv arch its hidden grid before the decoder blocks, as
+        the JAX package's ``jax.image.resize(..., "trilinear")``
+        (``_resize``)."""
         c = self.cfg
         _, _, Tp, Hp, Wp = z.shape
         natural = (Tp * c.t_down, Hp * c.s_down, Wp * c.s_down)
         size = natural if out_size is None else tuple(int(n) for n in out_size)
-        if any(n < m for n, m in zip(size, natural)):
-            raise ValueError(f"VideoVAE.decode: out_size {size} is smaller than the "
-                             f"decoded size {natural}; only enlarging is supported")
         h = self.from_lat(z.to(c.dtype))
         if c.arch == "patch":
             for blk in self.dec:
                 h = blk(h)
             x = self._unpatchify(self.unpatch_proj(h.permute(0, 2, 3, 4, 1)))
             if size != natural:
-                x = F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+                x = _resize(x, size)
         else:
-            h = F.interpolate(h, size=size, mode="trilinear", align_corners=False)
+            h = _resize(h, size)
             for blk in self.dec:
                 h = blk(h)
             x = self.to_img(h)

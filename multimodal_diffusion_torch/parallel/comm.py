@@ -1,13 +1,16 @@
 """The collectives the layouts need, and their autograd pairs.
 
-Four transfers: a sum over a group (``all_reduce_``), a concatenation along
-a dimension (``all_gather``), a broadcast (``broadcast_``) and the ring's
+Four transfers: a sum over a group (``all_reduce_``; its maximum,
+``all_reduce_max_``; ``sum_over`` for a list), a concatenation along
+a dimension (``all_gather``), a broadcast (``broadcast_``; ``broadcast_over``
+for a list) and the ring's
 step, send to the next rank and receive from the previous one
 (``ring_exchange``), plus the pipeline's one-way hop (``send`` / ``recv``).
 A group of None (an axis of size 1) makes each of them the identity.
 
-NCCL takes CUDA tensors directly. gloo has only broadcast, all_reduce and
-barrier for CUDA tensors, so the other transfers of a CUDA tensor over a
+NCCL takes CUDA tensors only: a host tensor handed to an NCCL group is
+refused here (``on_device``) with a ValueError. gloo has only broadcast,
+all_reduce and barrier for CUDA tensors, so the other transfers of a CUDA tensor over a
 gloo group go through host memory (decided by the group's backend name,
 ``via_host``); the kernels still run on the card, only the bytes travel
 through the host. Transfers that do not add move bytes: bf16, fp16 and
@@ -45,6 +48,15 @@ def via_host(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def on_device(t: torch.Tensor, group) -> torch.Tensor:
+    """`t`, after checking that `group` can take it: an NCCL group takes
+    CUDA tensors only (gloo takes either)."""
+    if not t.is_cuda and dist.get_backend(group) == "nccl":
+        raise ValueError(f"a {t.device} tensor of {tuple(t.shape)} reached an NCCL group, "
+                         f"which takes CUDA tensors only")
+    return t
+
+
 def _wire(t: torch.Tensor, host: bool) -> torch.Tensor:
     """`t` as the bytes that travel: contiguous, on the host when `host`,
     bf16/fp16/bool reinterpreted as uint8 (the last dim's bytes)."""
@@ -61,10 +73,17 @@ def _unwire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum `t` over `group` in place (fp32 or wider; gloo and NCCL both take
-    CUDA tensors for this)."""
+    """Sum `t` over `group` in place (fp32 or wider, or int32, which sums
+    exactly; gloo and NCCL both take CUDA tensors for this)."""
     if group is not None:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(on_device(t, group), group=group)
+    return t
+
+
+def all_reduce_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of `t` over `group`, in place."""
+    if group is not None:
+        dist.all_reduce(on_device(t, group), op=dist.ReduceOp.MAX, group=group)
     return t
 
 
@@ -72,7 +91,7 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The group's tensors concatenated along `dim` in group-rank order."""
     if group is None:
         return t
-    w = _wire(t, via_host(t, group))
+    w = _wire(on_device(t, group), via_host(t, group))
     parts = [torch.empty_like(w) for _ in range(group_size(group))]
     dist.all_gather(parts, w, group=group)
     return torch.cat([_unwire(p, t) for p in parts], dim=dim)
@@ -82,7 +101,7 @@ def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """Overwrite `t` with global rank `src`'s copy, in place."""
     if group is None:
         return t
-    w = _wire(t, False)
+    w = _wire(on_device(t, group), False)
     dist.broadcast(w, src, group=group)
     if w.data_ptr() != t.data_ptr():
         t.copy_(_unwire(w, t))
@@ -99,7 +118,7 @@ def ring_exchange(tensors: Sequence[torch.Tensor], group, members: List[int],
     me = members.index(dist.get_rank())
     n = len(members)
     nxt, prv = members[(me + shift) % n], members[(me - shift) % n]
-    sends = [_wire(t, via_host(t, group)) for t in tensors]
+    sends = [_wire(on_device(t, group), via_host(t, group)) for t in tensors]
     recvs = [torch.empty_like(w) for w in sends]
     ops = [dist.P2POp(dist.isend, w, nxt, group) for w in sends]
     ops += [dist.P2POp(dist.irecv, w, prv, group) for w in recvs]
@@ -109,12 +128,12 @@ def ring_exchange(tensors: Sequence[torch.Tensor], group, members: List[int],
 
 
 def send(t: torch.Tensor, dst: int, group) -> None:
-    dist.send(_wire(t, via_host(t, group)), dst, group=group)
+    dist.send(_wire(on_device(t, group), via_host(t, group)), dst, group=group)
 
 
 def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
     """A tensor of `like`'s shape, dtype and device from global rank `src`."""
-    shape, dtype = list(like.shape), like.dtype
+    shape, dtype = list(on_device(like, group).shape), like.dtype
     if dtype in _BITCAST:
         shape[-1] *= like.element_size()
         dtype = torch.uint8
@@ -220,15 +239,27 @@ def ring_shift(tensors: Sequence[torch.Tensor], group, members: List[int]
     return list(_RingShift.apply(group, members, *tensors))
 
 
-def sum_over(ts: Sequence[Optional[torch.Tensor]], group) -> None:
-    """Sum every tensor of `ts` over `group` in place, as one fp32 transfer
-    (the tensors must be fp32 and equal in number and shape on every rank)."""
+def _flat_(ts: Sequence[Optional[torch.Tensor]], group, transfer) -> None:
+    """`transfer` of every tensor of `ts` over `group` as one flat fp32
+    tensor, copied back in place (the tensors must be fp32 and equal in
+    number and shape on every rank)."""
     ts = [t for t in ts if t is not None]
     if group is None or not ts:
         return
     flat = torch.cat([t.reshape(-1) for t in ts])
-    all_reduce_(flat, group)
+    transfer(flat)
     off = 0
     for t in ts:
         t.copy_(flat[off:off + t.numel()].view_as(t))
         off += t.numel()
+
+
+def sum_over(ts: Sequence[Optional[torch.Tensor]], group) -> None:
+    """Sum every tensor of `ts` over `group` in place, as one transfer."""
+    _flat_(ts, group, lambda flat: all_reduce_(flat, group))
+
+
+def broadcast_over(ts: Sequence[Optional[torch.Tensor]], src: int, group) -> None:
+    """Overwrite every tensor of `ts` with global rank `src`'s copy, in
+    place, as one transfer."""
+    _flat_(ts, group, lambda flat: broadcast_(flat, src, group))

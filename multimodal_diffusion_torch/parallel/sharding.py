@@ -5,8 +5,13 @@ JAX annotates parameters with logical axes ('embed', 'heads', 'mlp') and
 maps them onto the mesh with ``LOGICAL_RULES``; XLA then inserts the
 collectives. Here ``logical_axes`` gives the same annotation for the port's
 [out, in] weights, ``param_mesh_axes`` maps it onto mesh axes, and
-``tp_slice`` / ``tp_unslice`` cut and rejoin a rank's tensor-parallel part
-(the MMDiT core computes with those parts, ``models/mmdit.py``):
+``tp_slice`` / ``tp_unslice`` cut and rejoin a rank's tensor-parallel part.
+Under ``parallel.model: n`` a rank holds only its part of each split
+parameter, as each JAX device holds its shard (``models/mmdit.py``), and so
+do the parameter's Adam moments and EMA shadow; ``local_shape`` gives a
+part's shape, ``tp_part`` cuts a whole tensor to this rank's part (a part
+passes through) and ``tp_gather`` joins the group's parts into the whole
+(a checkpoint holds whole tensors):
 
   * qkv and fc1 split by output rows ('heads' / 'mlp'; the fused qkv's
     rows are q, k and v, each split alike so a rank takes whole heads);
@@ -18,8 +23,9 @@ collectives. Here ``logical_axes`` gives the same annotation for the port's
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -91,6 +97,43 @@ def tp_unslice(name: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return whole.reshape(shape[:dim] + [shape[dim] * n] + shape[dim + 1:])
 
 
+def local_shape(name: str, whole_shape: Sequence[int], n: int) -> Tuple[int, ...]:
+    """The shape of one rank's part of parameter `name` of `whole_shape`
+    over a 'model' group of n (the whole shape when it is not split)."""
+    shape = list(whole_shape)
+    axes = param_mesh_axes(name)
+    if n > 1 and "model" in axes:
+        dim = axes.index("model")
+        if shape[dim] % (_groups(name) * n):
+            raise ValueError(f"{name}: {shape[dim]} rows do not split into {n} parts")
+        shape[dim] //= n
+    return tuple(shape)
+
+
+def tp_part(name: str, t: torch.Tensor, part_shape: Sequence[int], n: int,
+            i: int) -> torch.Tensor:
+    """Rank i of n's part of parameter `name`, of `part_shape`: `t` itself
+    when it has that shape already, else `t` is the whole tensor and is cut
+    by tp_slice (ValueError when it is neither)."""
+    if tuple(t.shape) == tuple(part_shape):
+        return t
+    if local_shape(name, t.shape, n) != tuple(part_shape):
+        raise ValueError(f"{name}: {tuple(t.shape)} is neither the part {tuple(part_shape)} "
+                         f"nor the whole of it over {n} ranks")
+    return tp_slice(name, t, n, i)
+
+
+def tp_gather(name: str, part: torch.Tensor, group) -> torch.Tensor:
+    """The whole parameter `name` from every rank's part over the 'model'
+    `group` (all-gather, then tp_unslice; every rank of the group calls
+    it). `part` itself without a group or when `name` is not split."""
+    n = comm.group_size(group)
+    if n == 1 or "model" not in param_mesh_axes(name):
+        return part
+    parts = comm.all_gather(part.unsqueeze(0), group, 0)
+    return tp_unslice(name, list(parts.unbind(0)))
+
+
 def _rows(x, n: int, i: int):
     b = x.shape[0] // n
     return x[i * b:(i + 1) * b]
@@ -121,11 +164,14 @@ def shard_batch(mesh, batch: Any, batch_size: Optional[int] = None) -> Any:
     return put(batch)
 
 
-def replicated(mesh, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
-    """Make `tensors` whole and equal on every rank of `mesh`: the lead
-    rank's copy is broadcast over the world, in place."""
-    if mesh is None or not dist.is_initialized() or dist.get_world_size() == 1:
-        return tensors
-    for t in tensors:
-        comm.broadcast_(t.data, 0, dist.group.WORLD)
-    return tensors
+def replicated(mesh, named: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """Make the named parameters equal on every rank of `mesh`: the lead
+    rank's copy is broadcast over the world, in place (nothing to do for a
+    mesh of one rank). Under 'model' > 1 a
+    split parameter is a part that differs by rank and is left as it is."""
+    if (mesh is None or math.prod(mesh.shape.values()) == 1 or not dist.is_initialized()
+            or dist.get_world_size() == 1):
+        return
+    for name, t in named:
+        if not (mesh.size("model") > 1 and is_split(name)):
+            comm.broadcast_(t.data, 0, dist.group.WORLD)

@@ -15,6 +15,13 @@ as the JAX package's (whose orbax saves run in the background), and a config
 with ``training.ckpt_async: true`` gets the same files, written before
 ``save`` returns.
 
+A checkpoint always holds whole tensors. Under ``parallel.model: n`` each
+rank holds parts of the split parameters, of their moments and of their
+EMA: ``state_to_tree`` gathers them over the 'model' group (every rank of
+the group calls it; the lead rank writes) and ``restore_state`` cuts this
+rank's parts again, so a checkpoint crosses between layouts and one
+process bit for bit.
+
 The JAX package's orbax step directories (``<dir>/<step>/default/``) are
 read by ``train/orbax_reader.py``; ``restore_jax_state`` loads such a tree
 into a TrainState and ``checkpoint_format`` tells the two kinds apart.
@@ -30,6 +37,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.sharding import tp_gather, tp_part
 from ..utils.convert import jax_params_to_state_dict
 from .orbax_reader import is_orbax_step
 
@@ -88,13 +96,32 @@ class CheckpointManager:
         """No background writer to stop."""
 
 
+def _model_group(state):
+    mesh = getattr(state, "mesh", None)
+    return None if mesh is None else mesh.group("model")
+
+
+def _tp_coords(state):
+    mesh = getattr(state, "mesh", None)
+    return (1, 0) if mesh is None else (mesh.size("model"), mesh.index("model"))
+
+
+def _whole_cpu(named, group) -> Dict[str, torch.Tensor]:
+    """CPU copies of the whole tensors of `named` (parts gathered over the
+    'model' `group` where they live, then copied to the host)."""
+    return {k: tp_gather(k, v.detach(), group).cpu().clone() for k, v in named.items()}
+
+
 def state_to_tree(state) -> Dict[str, Any]:
-    """TrainState -> checkpoint tree (CPU tensors)."""
+    """TrainState -> checkpoint tree (CPU tensors, whole). Under
+    ``parallel.model`` > 1 it gathers over the 'model' group: every rank of
+    the group must call it."""
+    group = _model_group(state)
     return {
         "step": int(state.step),
-        "params": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+        "params": _whole_cpu(state.model.state_dict(), group),
         "opt_state": state.optimizer.state_dict(),
-        "ema_core": {k: v.detach().cpu().clone() for k, v in state.ema.items()},
+        "ema_core": _whole_cpu(state.ema, group),
         "rng": state.generator.get_state(),
     }
 
@@ -102,13 +129,19 @@ def state_to_tree(state) -> Dict[str, Any]:
 @torch.no_grad()
 def restore_state(state, tree: Dict[str, Any]) -> None:
     """Load a checkpoint tree into a TrainState built by create_trainer for
-    the same config, in place: the next step continues exactly."""
+    the same config, in place: the next step continues exactly (each rank
+    keeps its part of the split parameters, moments and EMA)."""
     state.step = int(tree["step"])
     state.model.load_state_dict(tree["params"], strict=True)
     state.optimizer.load_state_dict(tree["opt_state"])
-    for k, v in state.ema.items():
-        v.copy_(tree["ema_core"][k])
+    _load_ema(state, tree["ema_core"])
     state.generator.set_state(tree["rng"])
+
+
+def _load_ema(state, ema: Dict[str, torch.Tensor]) -> None:
+    n, i = _tp_coords(state)
+    for k, v in state.ema.items():
+        v.copy_(tp_part(k, ema[k], v.shape, n, i))
 
 
 def params_only_tree(tree: Dict[str, Any], use_ema: bool = False) -> Dict[str, torch.Tensor]:
@@ -231,6 +264,5 @@ def restore_jax_state(state, tree: Dict[str, Any]) -> None:
         "count": int(adam[0]["count"]), "mu": mu, "nu": nu,
         "mini_step": int(multi[0]["mini_step"]) if multi else 0,
         "acc": jax_params_to_state_dict(multi[0]["acc_grads"]) if multi else None})
-    for k, v in state.ema.items():
-        v.copy_(ema[k])
+    _load_ema(state, ema)
     state.step = int(tree["step"])

@@ -27,8 +27,11 @@ one card per rank by ``LOCAL_RANK``; ``gloo`` with ``--device cpu``) and
 the ``parallel.*`` keys lay the step out over the ranks
 (``parallel/mesh.py``); the streamed loader gives each data rank its shard
 of the clips and its rows of each global batch, and only rank 0 writes logs
-and checkpoints (the whole state: every rank holds all of it). The
-device-resident input stays one process, as in the JAX package.
+and checkpoints. A checkpoint holds the whole state: under
+``parallel.model`` every rank joins the gather of the split parameters',
+moments' and EMA's parts before rank 0 writes (``checkpoint.state_to_tree``),
+and a restore cuts each rank's parts again. The device-resident input stays
+one process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -161,10 +164,14 @@ def main(argv=None):
     # accepted for the JAX configs; the port's saves are synchronous either way
     ckpt_async = bool(cfg["training"].get("ckpt_async", True))
 
+    # every rank of a 'model' group joins the gather of its parts
+    gathers = lead or mesh.size("model") > 1
+
     def ckpt_fn(step, state):
+        tree = state_to_tree(state) if gathers else None
         if lead:
-            ckpt.save(step, state_to_tree(state),
-                      meta={"experiment": cfg.get("experiment", "")}, wait=not ckpt_async)
+            ckpt.save(step, tree, meta={"experiment": cfg.get("experiment", "")},
+                      wait=not ckpt_async)
 
     val_fn = None
     val_manifest = cfg["data"].get("val_split_glob")
@@ -220,8 +227,9 @@ def main(argv=None):
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
 
+    tree = state_to_tree(state) if gathers else None
     if lead:
-        ckpt.save(state.step, state_to_tree(state),
+        ckpt.save(state.step, tree,
                   meta={"experiment": cfg.get("experiment", ""), "final": True}, wait=True)
         print(f"[done] step {state.step}; checkpoints in {ckpt.dir}", flush=True)
         writer.close()

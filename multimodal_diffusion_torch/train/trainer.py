@@ -20,23 +20,31 @@ backward pass (``models/mmdit.py::remat_block``). ``run_training`` logs the
 denoiser's MFU (``utils/profiling.py``) with the JAX loop's formula.
 
 Layouts over ranks (``parallel.data``, ``model``, ``context``, ``pipe``;
-``parallel/mesh.py``): every rank holds the whole model, optimizer and EMA,
-draws the one-process step's randomness (and dropout masks) for the global
-batch and keeps its part. After the backward pass the gradients are summed
-so every rank holds the one-process gradient:
+``parallel/mesh.py``): every rank draws the one-process step's randomness
+(and dropout masks) for the global batch and keeps its part. Under
+``parallel.model: n`` a rank holds only its part of the core's split
+projections (``parallel/sharding.py::is_split``), of their gradients, Adam
+moments and EMA shadow, as the JAX package's parameter shardings place them
+(its optimizer state and EMA inherit those shardings); everything else is
+whole on every rank. After the backward pass the gradients are summed so
+every rank holds its part of the one-process gradient:
 
   * over 'data', every gradient: each rank's loss is its rows' share of the
     global batch's loss (the losses divide by the global batch's counts,
     ``train/losses.py``), so the sum is the global loss's gradient;
-  * over 'model', the core projections' split parameters
-    (``parallel/sharding.py::is_split``): each rank's heads and units reach
-    only its part of them;
   * over 'context' and over 'pipe', the core blocks' parameters: each rank
     runs them on its token shard, or its stage's blocks only.
 
-The layouts' entry and exit collectives (``parallel/comm.py``) hand every
-rank the whole gradient of what runs before and after the core, so nothing
-else is summed. The clip, AdamW and the EMA then run alike on every rank.
+Nothing is summed over 'model': a split parameter's part is reached only by
+this rank's heads and units, so its gradient is already whole, and the
+layouts' entry and exit collectives (``parallel/comm.py``) hand every rank
+the whole gradient of every replicated parameter. Each such gradient (over
+'model', and over 'context' or 'pipe' outside the core blocks) is then
+taken from the group's first rank, one broadcast a step: the ranks compute
+it alike, but equal only up to the kernels' nondeterminism, and a
+replicated parameter must stay one value on every rank. The clip's global norm
+sums the parts' squares over 'model' and counts each replicated parameter
+once; AdamW and the EMA then run on each rank's tensors.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..datasets.loader import copy_to_device, device_prefetch
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
@@ -58,7 +67,7 @@ from ..ops import schedule as S
 from ..ops.tokenize import num_chunks
 from ..parallel import comm
 from ..parallel.mesh import make_mesh_from_config
-from ..parallel.sharding import is_split, replicated, shard_batch
+from ..parallel.sharding import is_split, replicated, shard_batch, tp_gather, tp_part
 from ..utils.io import compute_dtype_from_config, latent_shapes_from_config, resolve_device
 from ..utils.profiling import calib_tflops, device_peak_flops, flops_mmdit_forward
 from .losses import (alignment_loss, mse_targets_only, reconstruction_loss,
@@ -93,10 +102,18 @@ def make_lr_schedule(cfg: Dict) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32, on the device."""
-    return torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(list(tensors))]))
+def global_norm(tensors: Sequence[torch.Tensor], split: Sequence[bool] = (),
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32, on the device.
+    Under tensor parallelism `split` flags the tensors that are this rank's
+    parts over the 'model' `group`: their squares are summed over the group
+    and the others' (whole, equal on every rank) counted once."""
+    norms = torch.stack([n.float() for n in torch._foreach_norm(list(tensors))])
+    if group is None or not any(split):
+        return torch.linalg.vector_norm(norms)
+    sq = norms.square()
+    flags = torch.tensor(list(split), dtype=torch.bool, device=sq.device)
+    return torch.sqrt(comm.all_reduce_(sq[flags].sum(), group) + sq[~flags].sum())
 
 
 class AdamW:
@@ -112,15 +129,22 @@ class AdamW:
       embedding tables too), then the step by lr(count) read at the count
       before the increment: the first update of a warmup run moves nothing;
     * accum_steps > 1: the running mean of k micro-batch grads is applied
-      every k-th call; the other calls change no parameter.
+      every k-th call; the other calls change no parameter;
+    * `tp_group`: the 'model' group under tensor parallelism; the split
+      parameters are this rank's parts, and so are their moments and
+      accumulator (the clip's norm is the whole model's, ``grad_norm``).
     """
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
                  lr_schedule: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.05, clip_norm: float = 1.0,
-                 mv_dtype: torch.dtype = torch.float32, accum_steps: int = 1):
+                 mv_dtype: torch.dtype = torch.float32, accum_steps: int = 1,
+                 tp_group=None):
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
+        self.tp_group = tp_group
+        self.tp_n, self.tp_i = comm.group_size(tp_group), comm.group_rank(tp_group)
+        self.split = [self.tp_n > 1 and is_split(n) for n in self.names]
         self.lr_schedule = lr_schedule
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
         self.clip_norm, self.mv_dtype, self.accum_steps = clip_norm, mv_dtype, accum_steps
@@ -152,8 +176,14 @@ class AdamW:
         self.mini_step = 0
         return True
 
+    def grad_norm(self, grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+        """The whole model's global norm of `grads` (one per parameter; None
+        is left out)."""
+        kept = [(g, s) for g, s in zip(grads, self.split) if g is not None]
+        return global_norm([g for g, _ in kept], [s for _, s in kept], self.tp_group)
+
     def _apply(self, grads: List[torch.Tensor]) -> None:
-        norm = global_norm(grads)
+        norm = self.grad_norm(grads)
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                              self.clip_norm / norm)
         g = torch._foreach_mul(grads, factor)
@@ -183,21 +213,28 @@ class AdamW:
         torch._foreach_add_(self.params, upd, alpha=-lr)
 
     def state_dict(self) -> Dict[str, Any]:
+        """Count, mini-step and the moments (and accumulator) as CPU copies
+        of whole tensors: under tensor parallelism the parts are gathered
+        over the 'model' group where they live, before the copy to the host
+        (every rank of the group calls it)."""
         def named(ts):
-            return None if ts is None else {n: t.detach().cpu().clone()
-                                            for n, t in zip(self.names, ts)}
+            return None if ts is None else {
+                n: tp_gather(n, t.detach(), self.tp_group).cpu().clone()
+                for n, t in zip(self.names, ts)}
         return {"count": self.count, "mini_step": self.mini_step,
                 "mu": named(self.mu), "nu": named(self.nu), "acc": named(self.acc)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """The inverse of state_dict; a split parameter's moments may also
+        be whole (a checkpoint's): this rank's part is cut."""
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
         for key in ("mu", "nu", "acc"):
             dst = getattr(self, key)
             if dst is None:
                 continue
             for n, t in zip(self.names, dst):
-                t.copy_(state[key][n])
+                t.copy_(tp_part(n, state[key][n], t.shape, self.tp_n, self.tp_i))
 
 
 def _mv_dtype(cfg: Dict) -> torch.dtype:
@@ -209,9 +246,12 @@ def _mv_dtype(cfg: Dict) -> torch.dtype:
     raise ValueError(f"training.optimizer.mv_dtype must be fp32|bf16, got {mv!r}")
 
 
-def make_optimizer(cfg: Dict, named_params: Sequence[Tuple[str, torch.Tensor]]) -> AdamW:
+def make_optimizer(cfg: Dict, named_params: Sequence[Tuple[str, torch.Tensor]],
+                   tp_group=None) -> AdamW:
     """The optimizer of ``training.optimizer`` (AdamW), ``training.scheduler``,
-    ``training.grad_clip_norm`` and ``data.grad_accum_steps``."""
+    ``training.grad_clip_norm`` and ``data.grad_accum_steps``, on the
+    parameters of a rank of the 'model' group `tp_group` (or of one
+    process)."""
     t = cfg["training"]
     opt = t["optimizer"]
     betas = opt.get("betas", (0.9, 0.95))
@@ -219,7 +259,7 @@ def make_optimizer(cfg: Dict, named_params: Sequence[Tuple[str, torch.Tensor]]) 
                  eps=float(opt.get("eps", 1e-8)),
                  weight_decay=float(opt.get("weight_decay", 0.05)),
                  clip_norm=float(t.get("grad_clip_norm", 1.0)), mv_dtype=_mv_dtype(cfg),
-                 accum_steps=int(cfg["data"].get("grad_accum_steps", 1)))
+                 accum_steps=int(cfg["data"].get("grad_accum_steps", 1)), tp_group=tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -229,13 +269,15 @@ def make_optimizer(cfg: Dict, named_params: Sequence[Tuple[str, torch.Tensor]]) 
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a step reads and writes. The parameters live in `model`."""
+    """Everything a step reads and writes. The parameters live in `model`;
+    `mesh` is the layout they are held in (None: one process)."""
 
     step: int
     model: AVDiffusionModel
     optimizer: AdamW
     ema: Dict[str, torch.Tensor]  # shadow of the core's parameters (scope core) or of all
     generator: torch.Generator
+    mesh: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,22 +393,31 @@ def reduce_gradients(names: Sequence[str], params: Sequence[torch.Tensor],
                      mesh) -> List[Optional[torch.Tensor]]:
     """The parameters' gradients summed over the mesh's groups as the module
     docstring says (a missing gradient counts as zero and becomes a tensor
-    when any sum runs)."""
+    when any sum runs); nothing is summed over 'model', and a missing
+    gradient stays missing under 'model' alone. A gradient that
+    every rank of a 'model', 'context' or 'pipe' group computes whole (a
+    replicated parameter's, outside the summed core blocks) is taken from
+    the group's first rank: the ranks' copies are equal only up to the
+    kernels' nondeterminism (a convolution's weight gradient summed by
+    atomics), and a replicated parameter must stay one value."""
     grads = [p.grad for p in params]
-    axes = [a for a in ("data", "model", "context", "pipe") if mesh is not None
-            and mesh.size(a) > 1]
-    if not axes:
-        return grads
-    grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
-             for p, g in zip(params, grads)]
+    axes = [a for a in ("data", "model", "context", "pipe")
+            if mesh is not None and mesh.size(a) > 1]
+    if any(a != "model" for a in axes):
+        grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                 for p, g in zip(params, grads)]
     for axis in axes:
+        group = mesh.group(axis)
         if axis == "data":
-            picked = range(len(names))
-        elif axis == "model":
-            picked = [i for i, n in enumerate(names) if is_split(n)]
+            comm.sum_over(grads, group)
+            continue
+        if axis == "model":  # a split parameter's part is this rank's alone
+            summed, whole = [], [i for i, n in enumerate(names) if not is_split(n)]
         else:
-            picked = [i for i, n in enumerate(names) if n.startswith("core.blocks.")]
-        comm.sum_over([grads[i] for i in picked], mesh.group(axis))
+            summed = [i for i, n in enumerate(names) if n.startswith("core.blocks.")]
+            whole = [i for i, n in enumerate(names) if not n.startswith("core.blocks.")]
+        comm.sum_over([grads[i] for i in summed], group)
+        comm.broadcast_over([grads[i] for i in whole], mesh.members(axis)[0], group)
     return grads
 
 
@@ -413,7 +464,7 @@ def build_train_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor,
         if data_group is not None:
             metrics = _sum_metrics(metrics, data_group)
         with torch.no_grad():
-            metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
+            metrics["grad_norm"] = state.optimizer.grad_norm(grads)
             state.optimizer.step(grads)
             if sc.use_ema:
                 named = dict(model.named_parameters())
@@ -521,8 +572,11 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     ranks, or one rank) lays the step out over ranks, as the JAX package's
     create_trainer: `batch_size` is the GLOBAL batch (default
     ``data.batch_size`` x the 'data' size), the latent shapes and the draws
-    are the global batch's, and every rank starts from the lead rank's
-    weights. A layout larger than the world raises ValueError.
+    are the global batch's, and every rank starts from the one-process init
+    (each rank draws it from the seed; the replicated parameters are also
+    broadcast from the lead rank) and keeps its part of the split
+    parameters under ``parallel.model``, whose moments and EMA are parts
+    too. A layout larger than the world raises ValueError.
 
     Sets torch.backends.cuda.matmul.allow_tf32 and
     torch.backends.cudnn.allow_tf32 to False: fp32 matmuls and convolutions
@@ -563,7 +617,7 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     seed = int(cfg.get("seed", 0)) if seed is None else int(seed)
     init_weights(model, torch.Generator().manual_seed(seed))
     model.to(dev).train()
-    replicated(mesh, list(model.parameters()))
+    replicated(mesh, model.named_parameters())
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     set_dropout_generator(model, generator)
     n_data = mesh.size("data")
@@ -578,7 +632,7 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
     shapes = latent_shapes_from_config(cfg, batch_size)
     abar_v = _abar(cfg["diffusion"]["video"], dev)
     abar_a = _abar(cfg["diffusion"]["audio"], dev)
-    optimizer = make_optimizer(cfg, list(model.named_parameters()))
+    optimizer = make_optimizer(cfg, list(model.named_parameters()), mesh.group("model"))
     use_ema = bool(ema_cfg.get("use_ema", True))
     # the EMA shadows the core's parameters (scope core) or all of them
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()
@@ -595,7 +649,8 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
         mouth_time_chunks=shapes["video"][2] // model.cfg.mouth_tube[0],
         recon_weight=float(t_cfg.get("recon_loss_weight", 0.0)), recon_every=recon_every,
         ema_decay=float(ema_cfg.get("decay", 0.999)), use_ema=use_ema, use_kernel=use_kernel)
-    state = TrainState(step=0, model=model, optimizer=optimizer, ema=ema, generator=generator)
+    state = TrainState(step=0, model=model, optimizer=optimizer, ema=ema, generator=generator,
+                       mesh=mesh)
     return TrainerBundle(model=model, state=state,
                          train_step=build_train_step(sc, abar_v, abar_a, mesh),
                          eval_step=build_eval_step(sc, abar_v, abar_a, mesh), step_config=sc,
@@ -636,7 +691,7 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
 
     Under a mesh every rank runs this loop on the same global batches (or
     its own rows of them, see build_train_step); a step's target is the
-    first data rank's. A card without a known peak logs denoiser_mfu as nan
+    lead rank's. A card without a known peak logs denoiser_mfu as nan
     (one warning) and trains."""
     t_cfg = cfg["training"]
     max_steps = max_steps if max_steps is not None else int(t_cfg["max_steps"])
@@ -679,7 +734,8 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     except KeyError as err:
         warnings.warn(f"{err.args[0]}; denoiser_mfu is logged as nan")
         peak = math.nan
-    data_group = None if bundle.mesh is None else bundle.mesh.group("data")
+    several = (bundle.mesh is not None and math.prod(bundle.mesh.shape.values()) > 1
+               and dist.is_initialized())
     calib = calib_tflops() if bundle.device.type == "cuda" else None
 
     pending: List[Dict[str, torch.Tensor]] = []
@@ -689,11 +745,12 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
                              depth=depth, device=bundle.device)
     try:
         for batch, target_is_video in stream:
-            if data_group is not None:
-                # the batch's own target may differ between the ranks' rows
+            if several:
+                # the batch's own target may differ between the ranks' rows,
+                # and a collated batch draws it from each process's numpy
+                # generator: every rank takes the lead rank's
                 tiv = torch.tensor([target_is_video], device=bundle.device)
-                target_is_video = float(comm.broadcast_(
-                    tiv, bundle.mesh.members("data")[0], data_group)[0])
+                target_is_video = float(comm.broadcast_(tiv, 0, dist.group.WORLD)[0])
             metrics = bundle.train_step(state, batch, target_is_video)
             if log_fn is not None:
                 pending.append(metrics)

@@ -33,10 +33,10 @@ has a bias, else ``RMSNorm``;
 ``fc{k}`` too; a 1-D ``weight`` is a ``scale``, any other a ``kernel``), and
 each kernel back to the JAX layout.
 
-A layout over ranks cuts the same state_dict: ``tp_shard_state_dict`` takes
-a rank's tensor-parallel part (the qkv and fc1 rows, the attention out and
-fc2 columns of every core block, ``parallel/sharding.py``) and
-``tp_gather_state_dicts`` joins the ranks' parts back;
+A layout over ranks cuts the same state_dict: a rank's tensor-parallel
+part of each parameter (the qkv and fc1 rows, the attention out and fc2
+columns of every core block) is ``parallel/sharding.py``'s ``tp_slice`` /
+``tp_unslice`` by name, and the model cuts it as it loads;
 ``pipeline_stage_state_dict`` takes a pipeline stage's blocks (renumbered
 from 0, as the JAX package's per-stage trees ``{block_i}``) and
 ``pipeline_gather_state_dicts`` joins the stages back. The fused qkv's part
@@ -56,7 +56,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.sharding import tp_slice, tp_unslice
 
 _NORM = re.compile(r"(RMSNorm|LayerNorm|GroupNorm)_(\d+)")
 _DENSE = re.compile(r"Dense_(\d+)")
@@ -205,19 +204,6 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Load a JAX params tree into `model` (strict: every key on both sides)."""
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)
     return model
-
-
-def tp_shard_state_dict(sd: Mapping[str, torch.Tensor], n: int, i: int
-                        ) -> Dict[str, torch.Tensor]:
-    """Rank i of n's tensor-parallel part of every parameter (the whole
-    tensor where it is not split)."""
-    return {k: tp_slice(k, v, n, i).contiguous() for k, v in sd.items()}
-
-
-def tp_gather_state_dicts(parts: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
-    """The whole state_dict from every rank's tp_shard_state_dict, in rank
-    order."""
-    return {k: tp_unslice(k, [p[k] for p in parts]) for k in parts[0]}
 
 
 _BLOCK = re.compile(r"^(.*?blocks\.)(\d+)(\..*)$")

@@ -3,9 +3,15 @@ model with initialized params, and the port's model on the same weights."""
 
 from __future__ import annotations
 
+import ctypes
+import subprocess
+import time
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax.core import meta
 
@@ -153,3 +159,56 @@ def jax_layout_loss_and_grads(cfg: dict, params, batch: dict, draws: dict,
                            "keep_a": (w * keep_nt + (1 - w)).astype(np.float32)})
     loss, grads = fn(jax.device_put(params, shardings), b, jnp.float32(w))
     return float(loss), jax_params_to_state_dict(jax.device_get(grads))
+
+
+def have_jpeglib() -> bool:
+    """Whether g++ and libjpeg's header are there (the native loader's
+    build needs both)."""
+    try:
+        r = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n",
+                           capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return r.returncode == 0
+
+
+def _loads_whole(path: Path, timeout_s: float = 120.0) -> bool:
+    """Wait until the library at `path` keeps its size for 0.2 s and loads."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if path.exists():
+            size = path.stat().st_size
+            time.sleep(0.2)
+            if path.exists() and path.stat().st_size == size:
+                try:
+                    ctypes.CDLL(str(path))
+                    return True
+                except OSError:
+                    pass
+        time.sleep(0.2)
+    return False
+
+
+@pytest.fixture
+def native_loaders():
+    """Both packages' native JPEG loaders, whole and loaded, before a test
+    compares their decodes: under the port's build lock the JAX library is
+    made with its own rule (``make -C native``), the test waits until it
+    loads (another process may still be writing it in place), and a JAX
+    loader that latched "unavailable" in this process on a half-written
+    file tries again. Where libjpeg's header exists both must be available.
+    Returns (the port's module, the JAX package's module)."""
+    from multimodal_diffusion_torch.datasets import native_loader as TN
+    from multimodal_diffusion_tpu.datasets import native_loader as JN
+
+    if have_jpeglib():
+        with TN.build_lock():
+            subprocess.run(["make", "-C", str(JN._NATIVE_DIR)], capture_output=True,
+                           text=True, timeout=120)
+            _loads_whole(JN._SO_PATH)
+        with JN._lock:
+            if JN._lib is None:
+                JN._tried = False
+        assert TN.available() and JN.available()
+    return TN, JN

@@ -217,8 +217,8 @@ def test_param_axes_follow_jax_shardings():
 
 
 def test_state_dict_cuts_round_trip_and_match_jax(setup):
-    """tp_shard_state_dict / tp_gather_state_dicts and the pipeline stage
-    cuts are exact inverses; the attention out, fc1 and fc2 parts equal the
+    """tp_slice / tp_unslice over a state_dict and the pipeline stage cuts
+    are exact inverses; the attention out, fc1 and fc2 parts equal the
     JAX device shards of infer_param_shardings; a stage's blocks equal the
     JAX per-stage tree {block_i} converted."""
     from multimodal_diffusion_tpu.parallel.pipeline import (stack_stage_params,
@@ -228,8 +228,8 @@ def test_state_dict_cuts_round_trip_and_match_jax(setup):
 
     _, params, state, *_ = setup
     sd = {k: torch.from_numpy(v) for k, v in state.items()}
-    parts = [TC.tp_shard_state_dict(sd, 2, i) for i in range(2)]
-    whole = TC.tp_gather_state_dicts(parts)
+    parts = [{k: TSh.tp_slice(k, v, 2, i) for k, v in sd.items()} for i in range(2)]
+    whole = {k: TSh.tp_unslice(k, [p[k] for p in parts]) for k in sd}
     assert all(torch.equal(whole[k], sd[k]) for k in sd)
     q = sd["core.blocks.0.attn.qkv.weight"].reshape(3, 4, 16, 64)  # (q|k|v, head, Dh, in)
     assert torch.equal(parts[1]["core.blocks.0.attn.qkv.weight"], q[:, 2:].reshape(-1, 64))

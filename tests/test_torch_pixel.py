@@ -30,7 +30,7 @@ import torch
 import yaml
 from PIL import Image
 
-from _torch_parity import perturb
+from _torch_parity import native_loaders, perturb  # noqa: F401 (a fixture)
 from multimodal_diffusion_torch.infer import sample_pixel as TSP
 from multimodal_diffusion_torch.models import image_diffusion as TI
 from multimodal_diffusion_torch.ops import schedule as TS
@@ -40,7 +40,6 @@ from multimodal_diffusion_torch.train.trainer import AdamW, make_optimizer
 from multimodal_diffusion_torch.utils.convert import (_leaves, jax_params_to_state_dict,
                                                       load_jax_params,
                                                       state_dict_to_jax_params)
-from multimodal_diffusion_tpu.datasets import native_loader as JN
 from multimodal_diffusion_tpu.models import image_diffusion as JI
 from multimodal_diffusion_tpu.ops import schedule as JS
 from multimodal_diffusion_tpu.train import train_pixel as JTP
@@ -291,12 +290,12 @@ def _write_images(root, kind: str, n: int = 10, size=(40, 30)):
 
 
 @pytest.mark.parametrize("kind,size", [("png", (40, 30)), ("jpg", (8, 8))])
-def test_iter_image_batches_is_bit_equal_to_jax(tmp_path, kind, size):
+def test_iter_image_batches_is_bit_equal_to_jax(tmp_path, kind, size, native_loaders):
     """PNGs of 40x30 (PIL: center crop to 30x30, bilinear to 8x8) and square
-    JPEGs (the native decoder, built by each package): three epochs' worth of
-    batches of 4 from 10 images, bit for bit."""
-    from multimodal_diffusion_torch.datasets import native_loader as TN
-
+    JPEGs (the native decoder, built by each package and whole before the
+    comparison: ``native_loaders``): three epochs' worth of batches of 4
+    from 10 images, bit for bit."""
+    TN, JN = native_loaders
     root = _write_images(tmp_path / kind, kind, size=size)
     if kind == "jpg":
         assert TN.available() and JN.available()

@@ -25,7 +25,8 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import perturb, shrunk_cfg, shrunk_flagship_cfg
+from _torch_parity import (native_loaders, perturb, shrunk_cfg,  # noqa: F401 (a fixture)
+                           shrunk_flagship_cfg)
 from multimodal_diffusion_torch.datasets import audio_dataset as TAD
 from multimodal_diffusion_torch.datasets import frames_dataset as TFD
 from multimodal_diffusion_torch.models import schedules as TSch
@@ -310,10 +311,11 @@ def frame_clips(tmp_path_factory):
 
 @pytest.mark.parametrize("source", ["dir", "manifest"])
 @pytest.mark.parametrize("device_preprocess", [False, True])
-def test_frames_dataset_equals_jax(frame_clips, source, device_preprocess):
+def test_frames_dataset_equals_jax(frame_clips, source, device_preprocess, native_loaders):
     """Clips of 6 frames at 16x16 (fewer frames repeat the last; 20x16
     frames are resized) from a directory of clip_* folders or a manifest
-    (which takes AVManifestDataset's float layout either way)."""
+    (which takes AVManifestDataset's float layout either way); both
+    packages' native decoders whole first (``native_loaders``)."""
     root, manifest = frame_clips
     src = root if source == "dir" else manifest
     kw = dict(clip_seconds=1.5, fps=4, size_hw=(16, 16), device_preprocess=device_preprocess)
