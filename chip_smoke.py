@@ -244,6 +244,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                DECODE_SHRINK_REL_TOL of the same decode on the CPU, the
                resize alone within RESIZE_REL_TOL, its ms beside the
                natural decode's.
+ 25. bench   — tools/bench.py (the root bench.py's counterpart) in this
+               process, BENCH_RUNS in order: v2a at mvp with bench.py's
+               defaults (B=8, 50 steps, 7 samples of 3 calls), a2v, v2a at
+               the flagship (N = 421, the mouth stream zeroed as bench.py
+               passes no mouth tokens), t2i at bench.py's 8-layer core and
+               with --serving (int8, dpmpp_2m at 12 steps), the train step
+               at mvp and at the flagship (the decode step and the plain
+               step timed apart and blended); each prints bench.py's line,
+               then a bench line with the denoiser's tokens and launches.
+               Gates: exactly bench.py's keys, a _cuda metric, value =
+               batch / best latency (av), finite, and exactly 400 / 400 /
+               800 / 408 / 104 forward launches a batch, 8 / 16 of each
+               kernel a train step;
+ 26. tools   — quant_probe (bf16 / int8 / fp8 rates and numerics),
+               mfu_probe (the t2i core forward's MFU, attention alone),
+               and on the orbax fixture with 4 synthetic clips written
+               under runs/ eval_av_quality and latent_probe: one line
+               each, finite, with the JAX tools' keys.
 Then a `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The device time by kernel of one v2a batch is
 `python -m multimodal_diffusion_torch.tools.profile_v2a`, of one train step
@@ -3426,6 +3444,217 @@ def decode_shrink_phase(cycles_per_s, smi) -> None:
         raise AssertionError(f"decode_shrink: {rec}")
 
 
+# tools/bench.py (bench.py's counterpart): each run's arguments, the flash
+# forward launches of one pipeline call (av, t2i) or the launches of each
+# kernel in one train step, and the JSON keys bench.py prints for its task
+CONFIGS = REPO / "configs"
+FLAGSHIP_ARGS = ["--config", str(CONFIGS / "mvp.yaml"), str(CONFIGS / "specificity8.yaml")]
+SHORT_ARGS = ["--repeats", "3", "--inner", "1"]
+BENCH_RUNS = [
+    ("v2a_mvp", [], 400),
+    ("a2v_mvp", ["--direction", "a2v", *SHORT_ARGS], 400),
+    ("v2a_flagship", [*FLAGSHIP_ARGS, *SHORT_ARGS], 800),
+    ("t2i", ["--task", "t2i", *SHORT_ARGS], 50 * 8 + 2 * 4),
+    ("t2i_serving", ["--task", "t2i", "--serving", *SHORT_ARGS], 12 * 8 + 2 * 4),
+    ("train_mvp", ["--task", "train", "--repeats", "5"], 8),
+    ("train_flagship", ["--task", "train", *FLAGSHIP_ARGS, "--repeats", "5"], 16),
+]
+BENCH_KEYS = {
+    "av": ["metric", "value", "unit", "vs_baseline", "best_batch_latency_s",
+           "p50_batch_latency_s", "p50_clips_per_sec", "spread_s", "calib_tflops"],
+    "t2i": ["metric", "value", "unit", "vs_baseline", "spread_s", "calib_tflops"],
+    "train": ["metric", "value", "unit", "vs_baseline", "step_ms", "denoiser_mfu_est",
+              "calib_tflops"],
+}
+BENCH_RECON_KEYS = ["recon_step_ms", "norecon_step_ms", "recon_every"]
+
+
+def finite_numbers(obj) -> bool:
+    """Every number in a JSON-like tree is finite."""
+    import math
+
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    if isinstance(obj, float):
+        return math.isfinite(obj)
+    return True
+
+
+def bench_phase(fa, smi) -> dict:
+    """tools/bench.py's main in this process, run by run (BENCH_RUNS). Each
+    run prints bench.py's own line; a bench line here adds the denoiser's
+    tokens per sample and the launches. Gates: exactly bench.py's keys with
+    a _cuda metric, value = batch / best_batch_latency_s (av), finite
+    numbers and a finite last output, and the launches of every call or
+    step exactly the run's count (the backward kernels none in sampling)."""
+    import torch
+
+    from multimodal_diffusion_torch.tools import bench
+
+    paths = {}
+    for name, argv, per_call in BENCH_RUNS:
+        task = argv[argv.index("--task") + 1] if "--task" in argv else "av"
+        reset_launch_counts(fa)
+        run = bench.main(argv)
+        got = launch_counts(fa)
+        if task == "train":
+            want = {k: per_call * run.calls for k in got}
+        else:
+            want = {"flash_fwd": per_call * run.calls, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+        keys = BENCH_KEYS[task] + (BENCH_RECON_KEYS if "recon_step_ms" in run.line else [])
+        rec = {"phase": "bench", "run": name, "argv": argv, "device": smi, "tokens": run.tokens,
+               "padded_tokens": run.padded_tokens, "calls": run.calls, "launches": got,
+               "launches_per_call": {k: v / run.calls for k, v in got.items()},
+               "line": run.line}
+        emit(rec)
+        line = run.line
+        bad = []
+        if list(line) != keys or not line["metric"].endswith("_cuda"):
+            bad.append("keys or metric")
+        if task == "av" and abs(line["value"] * line["best_batch_latency_s"] / 8 - 1) > 1e-3:
+            bad.append("value != batch / best_batch_latency_s")
+        if not (run.finite and finite_numbers(line)):
+            bad.append("not finite")
+        if got != want:
+            bad.append(f"launches {got}, expected {want}")
+        if name == "train_flagship" and line.get("recon_every") != 8:
+            bad.append("no decode blend")
+        if bad:
+            raise AssertionError(f"bench {name}: {bad}")
+        paths[f"bench_{name}"] = got
+        torch.cuda.empty_cache()
+    return paths
+
+
+def eval_report_keys(sufs) -> list:
+    """The keys of tools/eval_av_quality.py's mean report for n > 1 clips,
+    the conditioning-sensitivity pass and the variants `sufs`."""
+    keys = ["logmel_l1", "spec_convergence"]
+    for suf in sufs:
+        keys += [f"av_sync_corr{suf}_{who}" for who in ("gen", "real", "shuf", "real_shuf")]
+    keys += ["env_corr_gen", "env_corr_shuf", "env_corr_real_shuf", "env_retrieval_top1",
+             "logmel_l1_shuf", "retrieval_top1", "retrieval_margin", "cond_sensitivity_logmel",
+             "cond_sensitivity_wav_l2"]
+    for suf in sufs:
+        keys += [f"gap{suf}_{who}{t}" for who in ("gen", "real") for t in ("", "_t")]
+    return keys + ["gap_logmel", "gap_logmel_t", "gap_env", "gap_env_t", "n_clips", "ema"]
+
+
+LATENT_STATS = ["rms_per_sample_mean", "rms_per_sample_min", "rms_per_sample_max", "std_global",
+                "across_clip_std", "pairwise_cos_mean", "pairwise_cos_max"]
+EVAL_CLIPS = 4
+
+
+def write_eval_corpus(root: Path) -> list:
+    """EVAL_CLIPS clips at the orbax fixture's shape (8 PNG frames of 32x32
+    at 8 fps, 1 s of 8 kHz audio; a moving square and loudness-modulated
+    noise) under `root`, a manifest, a copy of the fixture's checkpoint and
+    an overlay naming both; returns the config paths."""
+    import shutil
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from multimodal_diffusion_torch.media.audio_io import write_wav
+
+    rng = np.random.default_rng(0)
+    clips = []
+    for i in range(EVAL_CLIPS):
+        fdir = root / f"clip_{i}"
+        fdir.mkdir(parents=True)
+        for t in range(8):
+            img = rng.integers(0, 40, (32, 32, 3), dtype=np.uint8)
+            r = (t * (1 + i) * 3) % 24
+            img[r:r + 8, 4 * i:4 * i + 8] = 230
+            Image.fromarray(img).save(fdir / f"frame_{t:06d}.png")
+        env = np.repeat(rng.uniform(0.1, 0.6, 8), 1000)
+        write_wav(root / f"clip_{i}.wav", (env * rng.uniform(-1, 1, 8000)).astype(np.float32),
+                  8000)
+        clips.append({"video_frames_dir": str(fdir), "audio_wav_path": str(root / f"clip_{i}.wav"),
+                      "fps": 8, "sr": 8000, "clip_seconds": 1.0})
+    (root / "clips.json").write_text(json.dumps({"clips": clips}))
+    shutil.copytree(REPO / FIXTURE / "ckpt", root / "ckpt")
+    overlay = root / "overlay.yaml"
+    overlay.write_text(yaml.safe_dump({"paths": {"ckpt_path": str(root / "ckpt")},
+                                       "data": {"train_split_glob": str(root / "clips.json")}}))
+    return [str(REPO / FIXTURE / "config.yaml"), str(overlay)]
+
+
+def quiet_call(main, argv):
+    """main(argv) with its standard output kept out of this script's."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def tools_phase(fa, smi) -> dict:
+    """The other tools of the repo on the card, one line each: quant_probe
+    (bf16 / int8 / fp8 rates at its default sizes and their numerics),
+    mfu_probe (the t2i core forward's MFU, attention alone through the flash
+    kernel and dense), and, on the orbax fixture and EVAL_CLIPS synthetic
+    clips written under runs/, eval_av_quality (its report's keys, finite)
+    and latent_probe (the same). Launches of the flash kernels are counted
+    per tool."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_diffusion_torch.tools import eval_av_quality, latent_probe, mfu_probe, \
+        quant_probe
+
+    paths = {}
+    t0 = time.perf_counter()
+    q = quiet_call(quant_probe.main, [])
+    emit({"phase": "quant_probe", "device": smi, "seconds": time.perf_counter() - t0, **q})
+    num = q["qkv_numerics"]
+    if not (finite_numbers(q) and 0 < num["int8_rel_err"] < 0.05 and num["fp8_e4m3_rel_err"] < 0.1
+            and num["bf16_rel_err"] < 0.01):
+        raise AssertionError(f"quant_probe: {q}")
+
+    reset_launch_counts(fa)
+    t0 = time.perf_counter()
+    m = quiet_call(mfu_probe.main, [])
+    paths["mfu_probe"] = launch_counts(fa)
+    emit({"phase": "mfu_probe", "device": smi, "seconds": time.perf_counter() - t0,
+          "launches": paths["mfu_probe"], **m})
+    if not (finite_numbers(m) and m["attn_shape"] == [16, 4, 1152, 128]
+            and 0 < m["core_mfu_vs_datasheet"] < 1 and "attn_flash_ms" in m):
+        raise AssertionError(f"mfu_probe: {m}")
+
+    (REPO / "runs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=REPO / "runs"))
+    try:
+        configs = write_eval_corpus(work)
+        reset_launch_counts(fa)
+        t0 = time.perf_counter()
+        report = quiet_call(eval_av_quality.main, ["--config", *configs, "--n", str(EVAL_CLIPS)])
+        paths["eval_av_quality"] = launch_counts(fa)
+        want = eval_report_keys(["", "0", "_mouth", "_mouth0"])
+        emit({"phase": "eval_av_quality", "device": smi, "seconds": time.perf_counter() - t0,
+              "launches": paths["eval_av_quality"], "report": report})
+        if sorted(report) != sorted(want) or not finite_numbers(report) \
+                or report["n_clips"] != EVAL_CLIPS:
+            raise AssertionError(f"eval_av_quality: keys {sorted(set(report) ^ set(want))}, "
+                                 f"{report}")
+        t0 = time.perf_counter()
+        probe = quiet_call(latent_probe.main, ["--config", *configs, "--n", str(EVAL_CLIPS)])
+        emit({"phase": "latent_probe", "device": smi, "seconds": time.perf_counter() - t0,
+              "report": probe})
+        if sorted(probe) != ["ema", "latent_rmsnorm", "n_clips", "z_audio", "z_video"] \
+                or any(sorted(probe[z]) != sorted(LATENT_STATS) for z in ("z_video", "z_audio")) \
+                or not finite_numbers(probe):
+            raise AssertionError(f"latent_probe: {probe}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -3490,6 +3719,8 @@ def main(argv=None) -> int:
     mpeg_audio_phase()
     decode_shrink_phase(spin_cycles_per_s(), smi)
     torch.cuda.empty_cache()
+    by_path.update(bench_phase(fa, smi))
+    by_path.update(tools_phase(fa, smi))
 
     def launches_of(name):
         paths = {path: counts[name] for path, counts in by_path.items() if counts.get(name)}

@@ -271,10 +271,12 @@ def cfg_sample_loop(model: nn.Module, text2: torch.Tensor, pad2: torch.Tensor,
 
 def encode_prompts(model: nn.Module, ids, neg_ids):
     """Both prompt sets through the text encoder, one call each (as the JAX
-    sampler): ([cond; negative] tokens [2B, L, d], their pad mask [2B, L])."""
+    sampler): ([cond; negative] tokens [2B, L, d], their pad mask [2B, L]).
+    Ids already on the model's device are used as they are (a host array is
+    copied there, which waits for the device)."""
     dev = next(model.parameters()).device
-    ids = torch.as_tensor(np.asarray(ids), device=dev)
-    neg_ids = torch.as_tensor(np.asarray(neg_ids), device=dev)
+    ids, neg_ids = (torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), device=dev)
+                    for x in (ids, neg_ids))
     text_c, _ = model.encode_text(ids)
     text_n, _ = model.encode_text(neg_ids)
     return torch.cat([text_c, text_n]), torch.cat([ids == PAD_ID, neg_ids == PAD_ID])

@@ -1,11 +1,14 @@
-"""Where the device time of one text->image batch goes, on one CUDA card
-(the port's counterpart of ``bench.py --task t2i``).
+"""Where the device time of one text->image batch of configs/t2i_512.yaml
+goes, on one CUDA card.
 
     python -m multimodal_diffusion_torch.tools.profile_t2i [--batch 8] [--steps 50]
         [--sampler ddim|dpmpp_2m] [--quant none|int8] [--bf16-params]
 
-(`--sampler dpmpp_2m --steps 12 --quant int8 --bf16-params` is the JAX
-`bench.py --serving` row.)
+This is configs/t2i_512.yaml's 16-layer core, not the root ``bench.py``'s
+t2i row: that row hard-codes an 8-layer core, and its port is
+``tools/bench.py --task t2i [--serving]``. (`--sampler dpmpp_2m --steps 12
+--quant int8 --bf16-params` applies the ``--serving`` levers to the
+16-layer config.)
 
 Builds configs/t2i_512.yaml at full width (512x512 images, 4x64x64 latents,
 text d=256 4 layers, core d=512 16 layers 4 heads of 128, 77 + 1024 tokens

@@ -16,6 +16,8 @@ from _torch_parity import jax_model_and_params, shrunk_cfg, shrunk_flagship_cfg
 from multimodal_diffusion_torch.infer import sample_clip, sample_t2i
 from multimodal_diffusion_torch.models.diffusion import AVDiffusionConfig, AVDiffusionModel
 from multimodal_diffusion_torch.serve import runner
+from multimodal_diffusion_torch.tools import (bench, eval_av_quality, latent_probe, mfu_probe,
+                                            quant_probe)
 from multimodal_diffusion_torch.train import train_joint
 from multimodal_diffusion_torch.train.trainer import create_trainer
 from multimodal_diffusion_torch.utils import io as tio
@@ -146,6 +148,16 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         runner.main(["--config", str(REPO / "configs" / "mvp.yaml"),
                      str(REPO / "configs" / "specificity8.yaml"), "--manifest", "unused.json"])
+    # the repo's own entry points on the port (tools/); preprocess_audio and
+    # supervise run on the host only and take no device
+    mvp = str(REPO / "configs" / "mvp.yaml")
+    for main, argv in ((bench.main, []), (bench.main, ["--task", "t2i", "--serving"]),
+                       (bench.main, ["--task", "train"]),
+                       (eval_av_quality.main, ["--config", mvp]),
+                       (latent_probe.main, ["--config", mvp]),
+                       (quant_probe.main, []), (mfu_probe.main, [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
 
 
 def test_unported_options_raise():
