@@ -2667,14 +2667,18 @@ def spec8_remat_phase(fa, smi):
     if not grad_peak_gb[True] < grad_peak_gb[False]:
         raise AssertionError(f"the forward + backward's peak under remat, {grad_peak_gb[True]} "
                              f"GB, is not below {grad_peak_gb[False]} GB without it")
-    # the logged MFU is the JAX loop's: 3 B flops_mmdit_forward(nv + na), the
-    # video and audio tokens (96 + 37 at the flagship) without the mouth's
+    # the logged MFU: 3 B flops_mmdit_forward(nv + na + nm), the video, audio
+    # and mouth tokens the core runs (96 + 37 + 288 at the flagship)
     zv, za = shapes["z_video"], shapes["z_audio"]
     tube, chunk = cfg["tokenizer"]["video"]["tube"], cfg["tokenizer"]["audio"]["chunk"]
     nv = (zv[2] // tube["t"]) * (zv[3] // tube["h"]) * (zv[4] // tube["w"])
     na = num_chunks(za[2], chunk["length"], chunk["stride"])
+    mouth = cfg["conditioning"]["mouth_crop"]
+    h0, h1, w0, w1 = mouth["box"]
+    nm = (shapes["video"][2] // mouth["tube"]["t"]) * ((h1 - h0) // mouth["tube"]["h"]) * \
+        ((w1 - w0) // mouth["tube"]["w"])
     core = cfg["model"]["core"]
-    flops = 3.0 * TRAIN_CLIPS * flops_mmdit_forward(nv + na, core["d_model"], n_layers,
+    flops = 3.0 * TRAIN_CLIPS * flops_mmdit_forward(nv + na + nm, core["d_model"], n_layers,
                                                     core["mlp_ratio"])
     for r in runs:
         for m in runs[r]["logs"]:
@@ -2683,7 +2687,7 @@ def spec8_remat_phase(fa, smi):
                     and np.isfinite(m.get("denoiser_mfu_vs_calib", np.nan))):
                 raise AssertionError(f"logged MFU {m} against {want_mfu}")
     out = {"phase": "spec8_remat", "config": "mvp+specificity8", "clips": TRAIN_CLIPS,
-           "core_dropout": 0.1, "tokens_in_mfu": nv + na, "warmup_steps": TRAIN_WARMUP,
+           "core_dropout": 0.1, "tokens_in_mfu": nv + na + nm, "warmup_steps": TRAIN_WARMUP,
            "steps": REMAT_STEPS,
            "losses_bit_equal": losses[True] == losses[False], "loss_rel_err": loss_rel,
            "grad_rel_err": grad_rel, "grads_bit_equal": grads_bit_equal,

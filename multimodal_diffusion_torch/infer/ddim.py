@@ -6,7 +6,9 @@ latent evolves. CFG is one batched forward per step: cond and null are
 stacked on the batch axis (2B), null = the prompt's embedded tokens zeroed;
 eps_hat = eps_null + g * (eps_cond - eps_null). The prompt's raw tokens (and
 the mouth-crop tokens, when the stream is enabled) are computed once, outside
-the step loop. The JAX package's ``lax.scan`` is a Python loop here.
+the step loop. The JAX package's ``lax.scan`` is a Python loop here; each
+step runs in the span ``ddim.step`` and its CFG denoiser call in
+``ddim.denoiser`` (``utils/profiling.py::span``).
 
 Sync guidance (v2a only) adds to eps_hat, at each step, the gradient with
 respect to the audio latent of the model's own temporal InfoNCE between the
@@ -25,6 +27,7 @@ import torch
 from ..models.diffusion import AVDiffusionModel
 from ..ops import schedule as S
 from ..train.losses import sync_contrastive_loss
+from ..utils.profiling import span
 
 
 def make_ddim_sampler(
@@ -184,54 +187,57 @@ def make_ddim_sampler(
         x0_prev = torch.zeros_like(z)
         h_prev = torch.zeros((B,) + (1,) * (z.ndim - 1), device=dev)
         for t_now, t_prev in pairs:
-            t_tgt = torch.full((2 * B,), t_now, dtype=torch.long, device=dev)
-            if target == "audio":
-                tok_tgt = model.tokenize_audio(z)
-                out = model.denoise_tokens(tok_prompt2, torch.cat([tok_tgt, tok_tgt]),
-                                           t_zero, t_tgt, grid, keep_prompt, keep_target,
-                                           **mouth_kw)
-                eps_tok = out["eps_a"]
-            else:
-                tok_tgt = model.tokenize_video(z)
-                out = model.denoise_tokens(torch.cat([tok_tgt, tok_tgt]), tok_prompt2,
-                                           t_tgt, t_zero, grid, keep_target, keep_prompt,
-                                           **mouth_kw)
-                eps_tok = out["eps_v"]
+            with span("ddim.step"):
+                t_tgt = torch.full((2 * B,), t_now, dtype=torch.long, device=dev)
+                if target == "audio":
+                    tok_tgt = model.tokenize_audio(z)
+                    with span("ddim.denoiser"):
+                        out = model.denoise_tokens(tok_prompt2, torch.cat([tok_tgt, tok_tgt]),
+                                                   t_zero, t_tgt, grid, keep_prompt,
+                                                   keep_target, **mouth_kw)
+                    eps_tok = out["eps_a"]
+                else:
+                    tok_tgt = model.tokenize_video(z)
+                    with span("ddim.denoiser"):
+                        out = model.denoise_tokens(torch.cat([tok_tgt, tok_tgt]), tok_prompt2,
+                                                   t_tgt, t_zero, grid, keep_target,
+                                                   keep_prompt, **mouth_kw)
+                    eps_tok = out["eps_v"]
 
-            eps_cond, eps_null = eps_tok[:B], eps_tok[B:]
-            eps_hat_tok = eps_null + g * (eps_cond - eps_null)
-            if phi > 0.0:
-                # CFG rescale (Lin et al. 2023) toward eps_cond's std, blend by phi
-                ax = tuple(range(1, eps_hat_tok.ndim))
-                s_cond = torch.std(eps_cond, dim=ax, keepdim=True, correction=0)
-                s_hat = torch.std(eps_hat_tok, dim=ax, keepdim=True, correction=0)
-                rescaled = eps_hat_tok * (s_cond / torch.clamp(s_hat, min=1e-12))
-                eps_hat_tok = phi * rescaled + (1.0 - phi) * eps_hat_tok
+                eps_cond, eps_null = eps_tok[:B], eps_tok[B:]
+                eps_hat_tok = eps_null + g * (eps_cond - eps_null)
+                if phi > 0.0:
+                    # CFG rescale (Lin et al. 2023) toward eps_cond's std, blend by phi
+                    ax = tuple(range(1, eps_hat_tok.ndim))
+                    s_cond = torch.std(eps_cond, dim=ax, keepdim=True, correction=0)
+                    s_hat = torch.std(eps_hat_tok, dim=ax, keepdim=True, correction=0)
+                    rescaled = eps_hat_tok * (s_cond / torch.clamp(s_hat, min=1e-12))
+                    eps_hat_tok = phi * rescaled + (1.0 - phi) * eps_hat_tok
 
-            if target == "audio":
-                eps_lat = model.untokenize_audio(eps_hat_tok, z.shape)
-            else:
-                eps_lat = model.untokenize_video(eps_hat_tok, z.shape)
+                if target == "audio":
+                    eps_lat = model.untokenize_audio(eps_hat_tok, z.shape)
+                else:
+                    eps_lat = model.untokenize_video(eps_hat_tok, z.shape)
 
-            if sync_g > 0.0:
-                # classifier guidance on the model's own sync pathway:
-                # eps' = eps + sqrt(1 - abar_t) * grad_z InfoNCE(z)
-                grad_sync = sync_grad(z, t_now).to(torch.float32)
-                if sync_guidance_norm == "rms":
-                    ax = tuple(range(1, z.ndim))
-                    rms = torch.sqrt(torch.mean(torch.square(grad_sync), dim=ax, keepdim=True)
-                                     + 1e-12)
-                    grad_sync = grad_sync / rms
-                eps_lat = eps_lat + sync_increment(float(abar_np[t_now])) * grad_sync
+                if sync_g > 0.0:
+                    # classifier guidance on the model's own sync pathway:
+                    # eps' = eps + sqrt(1 - abar_t) * grad_z InfoNCE(z)
+                    grad_sync = sync_grad(z, t_now).to(torch.float32)
+                    if sync_guidance_norm == "rms":
+                        ax = tuple(range(1, z.ndim))
+                        rms = torch.sqrt(torch.mean(torch.square(grad_sync), dim=ax, keepdim=True)
+                                         + 1e-12)
+                        grad_sync = grad_sync / rms
+                    eps_lat = eps_lat + sync_increment(float(abar_np[t_now])) * grad_sync
 
-            tb = torch.full((B,), t_now, dtype=torch.long, device=dev)
-            pb = torch.full((B,), t_prev, dtype=torch.long, device=dev)
-            if sampler == "dpmpp_2m":
-                z, x0_prev, h_prev = S.dpmpp_2m_step(z, tb, pb, eps_lat, abar, x0_prev, h_prev,
-                                                     param=param)
-            else:
-                z = S.ddim_step(z, tb, pb, eps_lat, abar, eta=eta, generator=generator,
-                                param=param)
+                tb = torch.full((B,), t_now, dtype=torch.long, device=dev)
+                pb = torch.full((B,), t_prev, dtype=torch.long, device=dev)
+                if sampler == "dpmpp_2m":
+                    z, x0_prev, h_prev = S.dpmpp_2m_step(z, tb, pb, eps_lat, abar, x0_prev, h_prev,
+                                                         param=param)
+                else:
+                    z = S.ddim_step(z, tb, pb, eps_lat, abar, eta=eta, generator=generator,
+                                    param=param)
         return z
 
     return sample

@@ -41,6 +41,7 @@ from ..train.checkpoint import (CheckpointManager, cast_params_bf16, checkpoint_
 from ..train.orbax_reader import read_orbax_step
 from ..utils.convert import jax_params_to_state_dict, load_jax_params
 from ..utils.io import compute_dtype_from_config, load_config, resolve_device
+from ..utils.profiling import span
 from ..utils.reference_checkpoint import reference_state_dict
 from .ddim import sampler_from_config
 
@@ -188,7 +189,13 @@ def sample_one_direction(
     mouth-crop stream enabled, v2a conditions on mouth tokens cut from the
     prompt frames; a2v runs with the stream zeroed. `mesh` (default: the
     model core's) with 'data' > 1: every rank passes the whole batch, samples
-    its rows and returns the whole batch's outputs."""
+    its rows and returns the whole batch's outputs.
+
+    The call runs in the span ``sample.call`` (``utils/profiling.py::span``)
+    and its stages in ``sample.upload`` (the prompt and the initial noise to
+    the device), ``sample.vae_encode``, ``sample.mouth_tokens`` (v2a with the
+    stream on), ``sample.denoise`` (the sampler), ``sample.decode`` and
+    ``sample.readback`` (the gather and the copy to the host)."""
     if prompt_modality not in {"video", "audio"}:
         raise ValueError("prompt_modality must be 'video' or 'audio'")
     dev = _model_device(model)
@@ -211,57 +218,71 @@ def sample_one_direction(
     fps = int(cfg["video"]["fps"])
     H, W = (int(x) for x in cfg["video"]["size"])
 
-    with torch.inference_mode():
+    with span("sample.call"), torch.inference_mode():
         if prompt_modality == "video":
             if prompt_video is None:
                 raise ValueError("prompt_video frames required for prompt_modality=video")
-            frames = torch.as_tensor(prompt_video).to(dev, torch.float32) / 255.0
-            batched = frames.ndim == 5
-            if not batched:
-                frames = frames[None]
-            B = frames.shape[0]
-            frames = frames.permute(0, 4, 1, 2, 3)  # [B,3,T,H,W]
-            # Center-crop T here, not only inside encode_video: the mouth
-            # tokens are then cut from exactly the frames the VAE encodes
-            # (the sampler derives the mouth grid from the cropped latent).
-            t_div = t_down
-            if model.cfg.mouth_enabled:
-                t_div = math.lcm(t_down, model.cfg.mouth_tube[0])
-            T_in = frames.shape[2]
-            T_crop = (T_in // t_div) * t_div
-            if T_crop == 0:
-                raise ValueError(f"prompt has {T_in} frames; need at least {t_div} "
-                                 f"(vae.t_down x mouth tube t)")
-            if T_crop != T_in:
-                s0 = (T_in - T_crop) // 2
-                frames = frames[:, :, s0:s0 + T_crop]
-            z_init = rows(torch.randn((B, Ca, Fa), generator=generator)).to(dev)
-            frames = rows(frames)
-            z_v0 = model.encode_video(frames)
+            with span("sample.upload"):
+                frames = torch.as_tensor(prompt_video).to(dev, torch.float32) / 255.0
+                batched = frames.ndim == 5
+                if not batched:
+                    frames = frames[None]
+                B = frames.shape[0]
+                frames = frames.permute(0, 4, 1, 2, 3)  # [B,3,T,H,W]
+                # Center-crop T here, not only inside encode_video: the mouth
+                # tokens are then cut from exactly the frames the VAE encodes
+                # (the sampler derives the mouth grid from the cropped latent).
+                t_div = t_down
+                if model.cfg.mouth_enabled:
+                    t_div = math.lcm(t_down, model.cfg.mouth_tube[0])
+                T_in = frames.shape[2]
+                T_crop = (T_in // t_div) * t_div
+                if T_crop == 0:
+                    raise ValueError(f"prompt has {T_in} frames; need at least {t_div} "
+                                     f"(vae.t_down x mouth tube t)")
+                if T_crop != T_in:
+                    s0 = (T_in - T_crop) // 2
+                    frames = frames[:, :, s0:s0 + T_crop]
+                z_init = rows(torch.randn((B, Ca, Fa), generator=generator)).to(dev)
+                frames = rows(frames)
+            with span("sample.vae_encode"):
+                z_v0 = model.encode_video(frames)
             sample, _ = sampler_from_config(cfg, target="audio")
-            tok_m = model.mouth_tokens(frames) if model.cfg.mouth_enabled else None
-            z_a = sample(model, z_v0, z_init, tok_mouth=tok_m)
-            wav = comm.all_gather(model.decode_audio(z_a)[:, 0].float(), group, 0)
-            wav = wav.cpu().numpy()  # [B, L]
+            tok_m = None
+            if model.cfg.mouth_enabled:
+                with span("sample.mouth_tokens"):
+                    tok_m = model.mouth_tokens(frames)
+            with span("sample.denoise"):
+                z_a = sample(model, z_v0, z_init, tok_mouth=tok_m)
+            with span("sample.decode"):
+                wav = model.decode_audio(z_a)[:, 0].float()
+            with span("sample.readback"):
+                wav = comm.all_gather(wav, group, 0).cpu().numpy()  # [B, L]
             return {"audio": wav if batched else wav[0], "sr": sr}
 
         if prompt_audio is None:
             raise ValueError("prompt_audio required for prompt_modality=audio")
-        wav = torch.as_tensor(prompt_audio).to(dev, torch.float32)
-        batched = wav.ndim == 2
-        if not batched:
-            wav = wav[None]
-        B = wav.shape[0]
-        z_a0 = model.encode_audio(rows(wav)[:, None, :])
-        T_in = (prompt_video.shape[-4] if prompt_video is not None
-                else int(round(float(cfg["data"]["clip_seconds"]) * fps)))
-        Tp = max(1, T_in // t_down)
-        z_init = rows(torch.randn((B, Cv, Tp, H // s_down, W // s_down),
-                                  generator=generator)).to(dev)
+        with span("sample.upload"):
+            wav = torch.as_tensor(prompt_audio).to(dev, torch.float32)
+            batched = wav.ndim == 2
+            if not batched:
+                wav = wav[None]
+            B = wav.shape[0]
+            wav = rows(wav)[:, None, :]
+            T_in = (prompt_video.shape[-4] if prompt_video is not None
+                    else int(round(float(cfg["data"]["clip_seconds"]) * fps)))
+            Tp = max(1, T_in // t_down)
+            z_init = rows(torch.randn((B, Cv, Tp, H // s_down, W // s_down),
+                                      generator=generator)).to(dev)
+        with span("sample.vae_encode"):
+            z_a0 = model.encode_audio(wav)
         sample, _ = sampler_from_config(cfg, target="video")
-        z_v = sample(model, z_a0, z_init)
-        x = comm.all_gather(model.decode_video(z_v).float().clamp(0, 1), group, 0)
-        x = x.cpu().numpy()  # [B,3,T,H,W]
+        with span("sample.denoise"):
+            z_v = sample(model, z_a0, z_init)
+        with span("sample.decode"):
+            x = model.decode_video(z_v).float().clamp(0, 1)
+        with span("sample.readback"):
+            x = comm.all_gather(x, group, 0).cpu().numpy()  # [B,3,T,H,W]
         frames_u8 = (x.transpose(0, 2, 3, 4, 1) * 255.0).astype(np.uint8)
         return {"video": frames_u8 if batched else frames_u8[0], "fps": fps}
 

@@ -39,13 +39,13 @@ tie's gradient evenly, as JAX's max reduction and ``maximum`` do.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..parallel import comm
+from ..utils.profiling import span
 
 # torch._int_mm wants more than 16 rows in its first operand
 INT_MM_MIN_ROWS = 17
@@ -116,14 +116,6 @@ def int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a8, w8.t())[:M]
 
 
-def _profiled(name: str):
-    """A profiler range around an int8 pass, only while a profiler records
-    (tools/profile_*.py read the passes' device time from it)."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 def quantize_weight(w: torch.Tensor, dtype: torch.dtype,
                     group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """A Dense weight [out, in] -> (int8 [out, in] contiguous, per-output-
@@ -183,11 +175,11 @@ def int8_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     x = x.to(dtype)
     w8, s_w = qweight if qweight is not None else quantize_weight(w, dtype, group)
     lead = x.shape[:-1]
-    with _profiled("int8_quantize"):
+    with span("int8_quantize"):
         a8, s_a = quantize_rowwise(x.reshape(-1, x.shape[-1]), group=group)
-    with _profiled("int8_mm"):
+    with span("int8_mm"):
         y = comm.all_reduce_(int8_matmul(a8, w8), group)
-    with _profiled("int8_rescale"):
+    with span("int8_rescale"):
         out = (y.float() * s_a * s_w).to(dtype)
         if b is not None:
             out = out + b.to(dtype)

@@ -24,7 +24,10 @@ Tasks:
           process, parallel.data 1) on a fixed uniform batch already on the
           device; clips/s. Where training.recon_every = K > 1 the decode step
           and the step without the decode are timed apart and blended as
-          (t_recon + (K - 1) t_norecon) / K.
+          (t_recon + (K - 1) t_norecon) / K. Its ``denoiser_mfu_est`` counts
+          the tokens and widths of the config run
+          (``utils/profiling.py::denoiser_train_flops``), where ``bench.py``
+          counts the mvp shape whatever the config.
 
 Method (``bench.py``'s): two warm-up calls, then ``--repeats`` samples, each
 ``--inner`` calls enqueued back to back and one ``torch.cuda.synchronize()``;
@@ -63,7 +66,7 @@ from ..train.checkpoint import cast_params_bf16
 from ..train.trainer import build_train_step, create_trainer
 from ..utils.convert import load_jax_params
 from ..utils.io import latent_shapes_from_config, load_config, resolve_device
-from ..utils.profiling import calib_tflops, flops_mmdit_forward, mfu
+from ..utils.profiling import calib_tflops, denoiser_tokens, denoiser_train_flops, mfu
 
 REPO = Path(__file__).resolve().parents[2]
 T2I_PROMPT, T2I_NEGATIVE, T2I_GUIDANCE = "a photo of a tpu", "", 5.0
@@ -157,13 +160,7 @@ def av_tokens(model: AVDiffusionModel, cfg: Dict) -> Tuple[int, int]:
     """The denoiser's tokens per sample of the av task (video + audio, plus
     the mouth-crop stream where it is enabled) and that count padded to the
     core's seq_multiple."""
-    s = latent_shapes_from_config(cfg, 1)
-    dev = next(model.parameters()).device
-    with torch.inference_mode():
-        n = (model.tokenize_video(torch.zeros(s["z_video"], device=dev)).shape[1]
-             + model.tokenize_audio(torch.zeros(s["z_audio"], device=dev)).shape[1])
-    if model.cfg.mouth_enabled:
-        n += int(np.prod(model.mouth_grid(s["video"][2])))
+    n = denoiser_tokens(model, latent_shapes_from_config(cfg, 1))
     return n, _padded(n, model.cfg.core.seq_multiple)
 
 
@@ -377,9 +374,9 @@ def bench_train(args, dev: torch.device) -> BenchRun:
         dt = (dt_recon + (K - 1) * dt_nr) / K
         extra = {"recon_step_ms": round(dt_recon * 1e3, 2),
                  "norecon_step_ms": round(dt_nr * 1e3, 2), "recon_every": K}
-    # rough MFU, bench.py's formula: the denoiser's fwd + bwd (3x the
-    # forward) at the mvp shape (133 tokens, d=512, 8 layers), whatever the config
-    flops = 3 * B * flops_mmdit_forward(133, 512, 8)
+    # rough MFU: the denoiser's fwd + bwd (3x the forward) at the tokens and
+    # widths of the config it ran
+    flops = denoiser_train_flops(bundle.model, bundle.latent_shapes)
     line = {
         "metric": f"train_clips_per_sec_b{B}_{dev.type}",
         "value": round(B / dt, 4),

@@ -17,7 +17,8 @@ generator. Nothing uses torch's global RNG.
 
 ``parallel.remat_core`` recomputes each core block's activations in the
 backward pass (``models/mmdit.py::remat_block``). ``run_training`` logs the
-denoiser's MFU (``utils/profiling.py``) with the JAX loop's formula.
+denoiser's MFU (``utils/profiling.py::denoiser_train_flops``): the JAX
+loop's formula at the tokens the core runs, the mouth-crop stream's too.
 
 Layouts over ranks (``parallel.data``, ``model``, ``context``, ``pipe``;
 ``parallel/mesh.py``): every rank draws the one-process step's randomness
@@ -64,12 +65,11 @@ from ..datasets.loader import copy_to_device, device_prefetch
 from ..models.diffusion import AVDiffusionConfig, AVDiffusionModel, init_weights
 from ..models.mmdit import set_dropout_generator, split_dropout
 from ..ops import schedule as S
-from ..ops.tokenize import num_chunks
 from ..parallel import comm
 from ..parallel.mesh import make_mesh_from_config
 from ..parallel.sharding import is_split, replicated, shard_batch, tp_gather, tp_part
 from ..utils.io import compute_dtype_from_config, latent_shapes_from_config, resolve_device
-from ..utils.profiling import calib_tflops, device_peak_flops, flops_mmdit_forward
+from ..utils.profiling import calib_tflops, denoiser_train_flops, device_peak_flops
 from .losses import (alignment_loss, mse_targets_only, reconstruction_loss,
                      sync_contrastive_loss)
 from .mask_schedule import Any2AnySchedule
@@ -681,11 +681,12 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     per interval; with training.recon_every = K > 1 the steps without the
     decode count as loss_recon 0, so the logged loss_recon, and its share of
     the logged loss, is 1/K of a reconstruction step's), and the denoiser's
-    MFU as the JAX loop computes it: ``denoiser_mfu`` = 3 B
-    flops_mmdit_forward(nv + na) per step time over the device's peak, and
-    on a card ``denoiser_mfu_vs_calib`` against ``calib_tflops()``, measured
-    once at the start of the call (nv + na leaves out the mouth-crop tokens
-    the core also runs, as the JAX formula does); checkpoint_fn(step, state) every `ckpt_every`;
+    MFU: ``denoiser_mfu`` = ``denoiser_train_flops`` (3 B
+    flops_mmdit_forward at the tokens the core runs, nv + na + nm; the JAX
+    loop leaves out the mouth-crop tokens nm) per step time over the
+    device's peak, and on a card ``denoiser_mfu_vs_calib`` against
+    ``calib_tflops()``, measured once at the start of the call;
+    checkpoint_fn(step, state) every `ckpt_every`;
     val_fn(step, state) every `val_every`; `should_stop()` is polled after
     every step.
 
@@ -719,16 +720,7 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
             batch = dict(batch, audio=np.zeros(bundle.latent_shapes["audio"], np.float32))
         return copy_to_device(batch, bundle.device), 1.0 if target == "video" else 0.0
 
-    # MFU accounting: fwd + bwd of the denoiser ~ 3x the forward FLOPs at
-    # the video and audio token count
-    core = bundle.model.cfg.core
-    tube = cfg["tokenizer"]["video"]["tube"]
-    chunk = cfg["tokenizer"]["audio"]["chunk"]
-    zv, za = bundle.latent_shapes["z_video"], bundle.latent_shapes["z_audio"]
-    nv = (zv[2] // int(tube["t"])) * (zv[3] // int(tube["h"])) * (zv[4] // int(tube["w"]))
-    na = num_chunks(za[2], int(chunk["length"]), int(chunk["stride"]))
-    denoiser_flops = 3.0 * B * flops_mmdit_forward(nv + na, core.d_model, core.n_layers,
-                                                   core.mlp_ratio)
+    denoiser_flops = denoiser_train_flops(bundle.model, bundle.latent_shapes)
     try:
         peak = device_peak_flops(bundle.device)
     except KeyError as err:

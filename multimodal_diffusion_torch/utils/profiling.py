@@ -1,11 +1,13 @@
 """Profiling and performance accounting (counterpart of the JAX package's
 ``utils/profiling.py``).
 
-  * ``trace(logdir)`` — a context manager around ``torch.profiler`` (CPU and,
-    on a card, CUDA activity) that writes a Chrome trace into `logdir`;
-  * ``annotate(name)`` — a ``torch.profiler.record_function`` range;
+  * ``span(name)`` — the port's one span: a host-clock record in a bounded
+    in-memory ring, read by ``spans()``, and, only while a profiler records,
+    a ``torch.profiler.record_function`` range of the same name;
   * ``flops_*`` — analytic FLOP counts of the MMDiT denoiser, identical to
     the JAX package's, so step metrics report model FLOPS utilization (MFU);
+    ``denoiser_tokens`` / ``denoiser_train_flops`` count them at the tokens
+    the core runs;
   * ``device_peak_flops()`` — the card's dense bf16 peak, by
     ``torch.cuda.get_device_name()`` (a CUDA card it does not know raises);
   * ``calib_tflops()`` — the bf16 matmul rate the card reaches right now;
@@ -15,11 +17,16 @@
 
 from __future__ import annotations
 
-import contextlib
-from pathlib import Path
-from typing import Dict, Optional
+import collections
+import itertools
+import math
+import threading
+import time
+from typing import Deque, Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import torch
+
+from ..ops.tokenize import num_chunks
 
 # dense bf16 matmul peak per card (FLOP/s), NVIDIA data sheets; "cpu" is the
 # JAX package's host figure
@@ -29,24 +36,77 @@ PEAK_FLOPS = {
 }
 
 
-@contextlib.contextmanager
-def trace(logdir):
-    """Capture a trace: ``with trace('runs/prof'): step(...)`` writes
-    ``<logdir>/trace.json`` (Chrome trace format)."""
-    from torch.profiler import ProfilerActivity, profile
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    logdir = Path(logdir)
-    logdir.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(logdir / "trace.json"))
+SPAN_RING = 16384  # finished spans kept, the oldest dropped first
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+class Span(NamedTuple):
+    """One finished span. Times are ``time.time_ns()``, the epoch clock of
+    the profiler's host events; `parent` is the id of the span that was open
+    on the same thread when this one opened (None at the root); `profiled`
+    says whether a profiler was recording when it opened."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    thread: int
+    profiled: bool
+
+
+_ring: Deque[Span] = collections.deque(maxlen=SPAN_RING)
+_ids = itertools.count()
+
+
+class _Open(threading.local):
+    def __init__(self):
+        self.stack: List[int] = []
+
+
+_open = _Open()
+
+
+class span:
+    """``with span("sample.decode"): ...`` times the block on the host
+    clock and appends a ``Span`` to the ring when it ends, always: two clock
+    reads and an append. While a profiler records it also opens a
+    ``torch.profiler.record_function`` range of the same name inside those
+    two readings, so the range shows in the trace and the ring's interval
+    encloses it."""
+
+    __slots__ = ("name", "_id", "_parent", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        stack = _open.stack
+        self._parent = stack[-1] if stack else None
+        self._id = next(_ids)
+        stack.append(self._id)
+        self._range = (torch.profiler.record_function(self.name)
+                       if torch.autograd._profiler_enabled() else None)
+        self._t0 = time.time_ns()
+        if self._range is not None:
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        t1 = time.time_ns()
+        _open.stack.pop()
+        _ring.append(Span(self._id, self.name, self._t0, t1, self._parent,
+                          threading.get_ident(), self._range is not None))
+
+
+def spans() -> List[Span]:
+    """The ring's finished spans, oldest first (at most ``SPAN_RING``)."""
+    return list(_ring)
 
 
 def device_peak_flops(device=None) -> float:
@@ -84,6 +144,29 @@ def flops_mmdit_forward(n_tokens: int, d_model: int, n_layers: int,
         + 4 * N * d * int(mlp_ratio * d)  # two mlp matmuls
     )
     return float(n_layers * per_layer)
+
+
+def denoiser_tokens(model, latent_shapes: Mapping[str, Sequence[int]]) -> int:
+    """Tokens the AV model's MMDiT core runs per sample, before padding to
+    its seq_multiple: the video tubes of ``latent_shapes["z_video"]``, the
+    audio chunks of ``latent_shapes["z_audio"]`` and, with the mouth-crop
+    stream on, the mouth tubes of ``latent_shapes["video"]``'s frames
+    (``utils/io.py::latent_shapes_from_config``'s keys). The JAX training
+    loop's MFU counts the first two only."""
+    c = model.cfg
+    n = math.prod(model.video_grid(latent_shapes["z_video"]))
+    n += num_chunks(latent_shapes["z_audio"][2], *c.chunk)
+    if c.mouth_enabled:
+        n += math.prod(model.mouth_grid(latent_shapes["video"][2]))
+    return n
+
+
+def denoiser_train_flops(model, latent_shapes: Mapping[str, Sequence[int]]) -> float:
+    """One training step's denoiser FLOPs: forward and backward, about three
+    forwards, of the batch of `latent_shapes` at ``denoiser_tokens``."""
+    core = model.cfg.core
+    return 3.0 * latent_shapes["z_video"][0] * flops_mmdit_forward(
+        denoiser_tokens(model, latent_shapes), core.d_model, core.n_layers, core.mlp_ratio)
 
 
 def flops_denoiser_step(batch: int, n_tokens: int, d_model: int, n_layers: int,

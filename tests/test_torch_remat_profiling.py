@@ -7,9 +7,11 @@ at small sizes:
   flash forward runs twice a layer per step (the recompute), once without a
   graph;
 * ``utils/profiling.py``: the FLOP counts and MFU equal the JAX package's,
-  the peak by card name, ``calib_tflops`` None off CUDA, a Chrome trace;
+  the peak by card name, ``calib_tflops`` None off CUDA, a span in a Chrome
+  trace;
 * ``run_training``'s ``denoiser_mfu`` equal to the JAX loop's formula at the
-  logged step time;
+  logged step time, and with the mouth-crop stream on, at the tokens the
+  core runs;
 * ``ModalitySchedule`` / ``build_schedules_from_config``, the tokenizers,
   ``FramesDataset`` and ``AudioDataset`` equal to the JAX package's;
 * the variational VideoVAE (mu path, given noise, KL, the autoencode) within
@@ -170,12 +172,15 @@ def test_flop_counts_and_mfu_equal_jax(args):
 
 
 def test_profiling_without_a_card(tmp_path):
+    """No calibration or memory figures off CUDA; a span opened under
+    torch.profiler is a range of the exported Chrome trace."""
     assert TP.calib_tflops() is None and JP.calib_tflops() is None
     assert TP.device_memory_stats() is None
-    with TP.trace(tmp_path / "prof"):
-        with TP.annotate("a_range"):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TP.span("a_range"):
             torch.ones(8, 8) @ torch.ones(8, 8)
-    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "a_range" for e in trace["traceEvents"])
 
 
@@ -217,6 +222,39 @@ def test_run_training_logs_the_jax_denoiser_mfu():
         want = JP.mfu(flops / (1.0 / m["steps_per_sec"]))
         np.testing.assert_allclose(m["denoiser_mfu"], want, rtol=1e-9)
         assert "denoiser_mfu_vs_calib" not in m
+
+
+def test_run_training_mfu_counts_the_mouth_tokens():
+    """With the mouth-crop stream on, denoiser_mfu counts the tokens the core
+    runs, nv + na + nm (the JAX loop's formula leaves out nm; ROADMAP.md's
+    notes): at the shrunk flagship 48 mouth tokens, a 12 x 16 box in 4 x 8
+    tubes over 8 frames; tools/bench.py's train line counts the same."""
+    cfg = shrunk_flagship_cfg()
+    cfg["training"]["log_every"] = 1
+    bundle = TT.create_trainer(cfg, device="cpu")
+    logs = []
+    TT.run_training(cfg, bundle, iter([_batch(bundle.latent_shapes)] * 2),
+                    log_fn=lambda step, m: logs.append(m), max_steps=2)
+    B = int(cfg["data"]["batch_size"])
+    s = latent_shapes_from_config(cfg, B)
+    tube, chunk = cfg["tokenizer"]["video"]["tube"], cfg["tokenizer"]["audio"]["chunk"]
+    nv = (s["z_video"][2] // tube["t"]) * (s["z_video"][3] // tube["h"]) * \
+        (s["z_video"][4] // tube["w"])
+    na = j_num_chunks(s["z_audio"][2], chunk["length"], chunk["stride"])
+    mouth = cfg["conditioning"]["mouth_crop"]
+    h0, h1, w0, w1 = mouth["box"]
+    nm = (s["video"][2] // mouth["tube"]["t"]) * ((h1 - h0) // mouth["tube"]["h"]) * \
+        ((w1 - w0) // mouth["tube"]["w"])
+    assert nm == 48
+    assert TP.denoiser_tokens(bundle.model, s) == nv + na + nm
+    core = cfg["model"]["core"]
+    flops = 3.0 * B * JP.flops_mmdit_forward(nv + na + nm, core["d_model"], core["n_layers"],
+                                             core["mlp_ratio"])
+    assert TP.denoiser_train_flops(bundle.model, s) == flops
+    assert len(logs) == 2
+    for m in logs:
+        np.testing.assert_allclose(m["denoiser_mfu"], JP.mfu(flops * m["steps_per_sec"]),
+                                   rtol=1e-9)
 
 
 # ---------------------------------------------------------------------------
