@@ -8,6 +8,7 @@ random weights from an explicit generator.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -69,6 +70,15 @@ def sinusoid_table(n: int, d: int) -> np.ndarray:
     return pe
 
 
+@functools.lru_cache(maxsize=None)
+def sinusoid_on(n: int, d: int, device: Optional[torch.device]) -> torch.Tensor:
+    """``sinusoid_table(n, d)`` on `device`, copied there once: a captured
+    CUDA graph of the denoiser (models/graphed.py) can copy nothing from the
+    host. Made outside inference mode, so a training pass may use it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(sinusoid_table(n, d)).to(device)
+
+
 class PositionalEmbedding1D(nn.Module):
     """1-D positions for audio tokens; mode 'learned' or 'sin'."""
 
@@ -84,7 +94,7 @@ class PositionalEmbedding1D(nn.Module):
         if self.mode == "learned":
             pe = self.table[:N]
         else:
-            pe = torch.from_numpy(sinusoid_table(N, self.d)).to(device)
+            pe = sinusoid_on(N, self.d, device)
         return pe.to(self.dtype)[None]
 
 
@@ -110,7 +120,7 @@ class PositionalEmbedding3D(nn.Module):
                   + self.h_table[None, :Hh, None, :]
                   + self.w_table[None, None, :Ww, :]).reshape(N, self.d)
         else:
-            pe = torch.from_numpy(sinusoid_table(N, self.d)).to(device)
+            pe = sinusoid_on(N, self.d, device)
         return pe.to(self.dtype)[None]
 
 

@@ -8,6 +8,8 @@
 ``denoise_tokens``/``denoise_latents`` serve sampling; ``forward`` is the
 training pass (encode -> q_sample -> denoise, plus the token-space targets
 and, on request, the reconstructions). Dropout follows ``train()``/``eval()``.
+On the card an eval-mode ``denoise_tokens`` without grad replays a captured
+CUDA graph of itself (``models/graphed.py``).
 
 With ``conditioning.mouth_crop.enabled`` a second, VAE-free conditioning
 stream joins the sequence after audio: raw pixels of a fixed mouth box,
@@ -22,6 +24,7 @@ JAX checkpoint onto this module's state_dict.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -40,6 +43,7 @@ from .adapters import (
     TimestepEmbedder,
 )
 from .audio_codec import AudioCodec, AudioCodecConfig, Conv1d
+from . import graphed
 from .heads import MultiModalNoiseHead
 from .mmdit import MMDiT, MMDiTConfig
 from .vae_image2d import Conv2d
@@ -233,6 +237,7 @@ class AVDiffusionModel(nn.Module):
             activation=c.head_activation,
             dtype=c.dtype,
             dropout=c.head_dropout)
+        self.graphs = graphed.DenoiserGraphs()
 
     # ------------------ codec passthroughs ------------------
 
@@ -344,7 +349,20 @@ class AVDiffusionModel(nn.Module):
         """Full denoiser pass: {'eps_v', 'eps_a', 'h_v', 'h_a'} and, with
         mouth tokens, 'h_m' (their contextualized features, for the sync
         loss; they attend in the core but have no head output).
-        ``use_kernel`` picks the attention backend (None: by device)."""
+        ``use_kernel`` picks the attention backend (None: by device). A call
+        that ``graphed.ineligible`` lets through replays a captured graph of
+        this pass (``self.graphs``) and returns fresh tensors."""
+        tensors = {"tok_v": tok_v, "tok_a": tok_a, "t_v": t_v, "t_a": t_a, "keep_v": keep_v,
+                   "keep_a": keep_a, "tok_m": tok_m, "keep_m": keep_m}
+        run = functools.partial(self._denoise_tokens, video_grid=video_grid,
+                                use_kernel=use_kernel, mouth_grid=mouth_grid)
+        if graphed.ineligible(self, tensors, use_kernel):
+            return run(**tensors)
+        statics = (tuple(video_grid), None if mouth_grid is None else tuple(mouth_grid))
+        return self.graphs(self, run, tensors, statics)
+
+    def _denoise_tokens(self, tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a, use_kernel,
+                        tok_m, keep_m, mouth_grid) -> Dict[str, torch.Tensor]:
         X, Nv = self.embed_tokens(tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a,
                                   tok_m, keep_m, mouth_grid)
         Na = tok_a.shape[1]

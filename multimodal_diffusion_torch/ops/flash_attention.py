@@ -257,6 +257,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+# kernel executions: a launch recorded into a captured graph is taken back,
+# and the graph adds it again at each replay (models/graphed.py)
 flash_forward.launches = 0
 
 
