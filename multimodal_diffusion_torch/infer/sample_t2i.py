@@ -5,6 +5,16 @@
         --config configs/t2i_512.yaml --prompt "a red fox" \
         [--negative "blurry"] [--steps 50] [--guidance 5.0] [--out-dir DIR] [--device cpu]
 
+A config with ``model.family: flux`` (``configs/flux_dev.yaml``) samples
+FLUX.1 instead (``infer/sample_flux.py``): its text towers are not ported,
+so it takes their outputs in place of ``--prompt``:
+
+    python -m multimodal_diffusion_torch.infer.sample_t2i \
+        --config configs/flux_dev.yaml --text-embeds embeds.npz [--steps 28] [--guidance 3.5]
+
+(``embeds.npz``: ``t5`` [L, 4096] or [B, L, 4096], ``pooled`` [768] or
+[B, 768]).
+
 Runs on CUDA unless ``--device cpu`` (raises when CUDA is asked for and
 absent). Weights come from the latest step under ``paths.ckpt_dir``: the
 port's own checkpoint (``train/checkpoint.py``) or the JAX package's orbax
@@ -55,7 +65,9 @@ def build_t2i(cfg: Dict, device: Union[str, torch.device] = "cuda",
 def main(argv=None) -> List[Path]:
     ap = argparse.ArgumentParser(description="Text->image DDIM sampling w/ CFG")
     ap.add_argument("--config", type=str, nargs="+", required=True)
-    ap.add_argument("--prompt", type=str, nargs="+", required=True)
+    ap.add_argument("--prompt", type=str, nargs="+", default=None)
+    ap.add_argument("--text-embeds", type=Path, default=None,
+                    help="a flux config's T5 and pooled CLIP embeddings (.npz)")
     ap.add_argument("--negative", type=str, nargs="*", default=None)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--guidance", type=float, default=None)
@@ -66,15 +78,12 @@ def main(argv=None) -> List[Path]:
     device = resolve_device("cpu" if (args.device or "").lower() == "cpu" else "cuda")
 
     cfg = load_config(*args.config)
-    model = build_t2i(cfg, device)
-    steps = args.steps or int(cfg["diffusion"]["image"].get("sampler_steps", 50))
-    guidance = args.guidance if args.guidance is not None else float(
-        cfg.get("sampling", {}).get("guidance_scale", 5.0))
-    sampler = str(cfg.get("sampling", {}).get("sampler", "ddim"))
-    imgs = sample_images(model, args.prompt, negative=args.negative or None,
-                         sampler_steps=steps, guidance_scale=guidance,
-                         generator=torch.Generator(device=device).manual_seed(args.seed),
-                         sampler=sampler)
+    if (cfg.get("model", {}) or {}).get("family") == "flux":
+        imgs = sample_flux_cli(cfg, args, device)
+    else:
+        if not args.prompt:
+            ap.error("--prompt is required")
+        imgs = sample_t2i_cli(cfg, args, device)
 
     from PIL import Image
 
@@ -84,6 +93,40 @@ def main(argv=None) -> List[Path]:
         Image.fromarray(im).save(path)
     print(f"[ok] wrote {len(imgs)} images -> {args.out_dir}")
     return paths
+
+
+def sample_t2i_cli(cfg: Dict, args, device: torch.device):
+    model = build_t2i(cfg, device)
+    steps = args.steps or int(cfg["diffusion"]["image"].get("sampler_steps", 50))
+    guidance = args.guidance if args.guidance is not None else float(
+        cfg.get("sampling", {}).get("guidance_scale", 5.0))
+    sampler = str(cfg.get("sampling", {}).get("sampler", "ddim"))
+    return sample_images(model, args.prompt, negative=args.negative or None,
+                         sampler_steps=steps, guidance_scale=guidance,
+                         generator=torch.Generator(device=device).manual_seed(args.seed),
+                         sampler=sampler)
+
+
+def sample_flux_cli(cfg: Dict, args, device: torch.device):
+    """FLUX.1 from --text-embeds, with the weights of the latest step under
+    paths.ckpt_dir (the port's checkpoint, the published key names), else
+    seeded random ones."""
+    from .sample_flux import build_flux, load_text_embeds, sample_flux
+
+    if args.text_embeds is None:
+        raise SystemExit("a flux config samples from --text-embeds (its text towers "
+                         "are not ported)")
+    ckpt_dir = (cfg.get("paths", {}) or {}).get("ckpt_dir")
+    sd = latest_state_dict(ckpt_dir) if ckpt_dir else None
+    if sd is None:
+        print("[info] no checkpoint; sampling with random weights")
+    else:  # served in the compute dtype, as cast_params_bf16 leaves a model
+        sd = {k: v.to(device, compute_dtype_from_config(cfg)) for k, v in sd.items()}
+    model, ae = build_flux(cfg, device, sd, seed=int(cfg.get("seed", 0)))
+    t5, pooled = load_text_embeds(args.text_embeds)
+    return sample_flux(cfg, model, ae, t5, pooled, device,
+                       torch.Generator().manual_seed(args.seed), steps=args.steps,
+                       guidance=args.guidance)["image"]
 
 
 if __name__ == "__main__":

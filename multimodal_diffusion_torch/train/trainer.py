@@ -665,7 +665,8 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
 
 def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, Any]], *,
                  max_steps: Optional[int] = None, log_fn=None, checkpoint_fn=None,
-                 val_fn=None, should_stop=None) -> TrainState:
+                 val_fn=None, should_stop=None,
+                 draws: Optional[Iterator[Dict[str, torch.Tensor]]] = None) -> TrainState:
     """Drive the step over a batch iterator: host batches (numpy) or batches
     already on the device (``datasets/records.py::device_resident_batches``).
 
@@ -688,7 +689,9 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
     ``calib_tflops()``, measured once at the start of the call;
     checkpoint_fn(step, state) every `ckpt_every`;
     val_fn(step, state) every `val_every`; `should_stop()` is polled after
-    every step.
+    every step. `draws`: an iterator of each step's random values, handed to
+    the step in place of its own draw from the trainer's generator (as
+    ``train_step``'s `draws`; dropout still draws from the generator).
 
     Under a mesh every rank runs this loop on the same global batches (or
     its own rows of them, see build_train_step); a step's target is the
@@ -743,7 +746,8 @@ def run_training(cfg: Dict, bundle: TrainerBundle, batches: Iterator[Dict[str, A
                 # generator: every rank takes the lead rank's
                 tiv = torch.tensor([target_is_video], device=bundle.device)
                 target_is_video = float(comm.broadcast_(tiv, 0, dist.group.WORLD)[0])
-            metrics = bundle.train_step(state, batch, target_is_video)
+            metrics = bundle.train_step(state, batch, target_is_video,
+                                        None if draws is None else next(draws))
             if log_fn is not None:
                 pending.append(metrics)
             step = state.step
