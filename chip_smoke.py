@@ -5,8 +5,9 @@
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — the card (nvidia-smi name, power limit), torch and CUDA versions;
-  2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu and
-               csrc/flash_bwd.cu, one nvcc each, started together; their
+  2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu,
+               csrc/flash_bwd.cu and csrc/rms_norm.cu, one nvcc each, started
+               together; their
                registers and spills, and the bf16 kernels' shared memory per
                block and blocks per SM;
   3. kernel  — the timing method's floor (the device time it reads for the
@@ -33,7 +34,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                [32, 4, 1152, 128] and [32, 4, 77, 64]; last, unmasked and
                bf16, the pixel sampler's forward at [16, 6, 64, 64] and the
                pixel train step's forward and backward pair at
-               [128, 6, 64, 64];
+               [128, 6, 64, 64]; then the RMSNorm kernel (csrc/rms_norm.cu,
+               no TPU counterpart) at the samplers' [16, 133, 512] and
+               [16, 421, 1024], bf16: within one bf16 ulp of its plain
+               version, bit-identical repeats, timed beside the plain
+               version and its bound (bytes);
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -275,6 +280,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -716,6 +722,62 @@ def kernel_phase(fa):
                                               n_valid, cycles_per_s).items():
                 results[(name, dname, kernel)] = brec
     stride_and_edge_cases(fa, cycles_per_s)
+    return results
+
+
+# (name, [2B, N, d]): the CFG-doubled token batch of the mvp and flagship
+# samplers, whose norms (two a block and the final one) take the kernel
+RMS_NORM_CASES = [("mvp_sample", (16, 133, 512)), ("flagship_sample", (16, 421, 1024))]
+
+
+def bf16_ulps_apart(a, b) -> int:
+    """The largest distance of two bf16 tensors in bf16 ulps (the bits in
+    the order of the values; 0 and -0 are 0 apart)."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def rms_norm_phase(rn, cycles_per_s):
+    """The RMSNorm kernel at the samplers' shapes, bf16 x, weight and out:
+    within one bf16 ulp of its plain version, two calls bit-identical, timed
+    beside the plain version and its bound (x read once, the weight once,
+    out written once, over 3.35 TB/s). Back to back, the 14-MB input stays
+    in the 50-MB L2, as in the sampler, where the residual add has just
+    written it."""
+    import torch
+
+    dev = torch.device("cuda")
+    eps, bf16 = 1e-6, torch.bfloat16
+    results = {}
+    for name, shape in RMS_NORM_CASES:
+        g = torch.Generator(device=dev).manual_seed(80)
+        x = (2.0 * torch.randn(shape, generator=g, device=dev)).to(bf16)
+        x[0, 0] = 0.0  # a CFG-dropped token
+        w = (1.0 + 0.05 * torch.randn(shape[-1], generator=g, device=dev)).to(bf16)
+        got = rn.rms_norm(x, w, eps, bf16)
+        again = rn.rms_norm(x, w, eps, bf16)
+        want = rn.rms_norm_reference(x, w, eps, bf16)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps_apart(got, want)
+        if ulps > 1 or not torch.equal(got.view(torch.int16), again.view(torch.int16)) \
+                or bool((got[0, 0] != 0).any()):
+            raise AssertionError(f"rms_norm {name}: {ulps} bf16 ulps from the plain version, "
+                                 f"or repeats or a zero row differ")
+        ms = cuda_median_ms(lambda: rn.rms_norm(x, w, eps, bf16), cycles_per_s)
+        plain_ms = cuda_median_ms(lambda: rn.rms_norm_reference(x, w, eps, bf16), cycles_per_s)
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = rec = {
+            "phase": "kernel", "kernel": "rms_norm", "case": name, "shape": list(shape),
+            "dtype": "bfloat16", "max_ulps": ulps, "repeat_bit_identical": True, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms}
+        emit(rec)
     return results
 
 
@@ -3676,12 +3738,18 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    names = list(fa.SOURCES)
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
-        libs = dict(zip(names, pool.map(fa.build, names)))
+    from multimodal_diffusion_torch.ops import rms_norm as rn
+
+    build_fns = {name: functools.partial(fa.build, name) for name in fa.SOURCES}
+    build_fns["rms_norm"] = rn.build
+    with ThreadPoolExecutor(len(build_fns)) as pool:  # one nvcc per source, together
+        libs = dict(zip(build_fns, pool.map(lambda build: build(), build_fns.values())))
     built = {}
     for name, lib in libs.items():
-        fa._library(name)
+        if name in fa.SOURCES:
+            fa._library(name)
+        else:
+            rn._library()
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         built[name] = {"library": lib.name, "ptxas": [
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}
@@ -3690,6 +3758,7 @@ def main(argv=None) -> int:
           "backward_bf16_occupancy": fa.backward_occupancy()})
 
     cases = kernel_phase(fa)
+    norm_cases = rms_norm_phase(rn, spin_cycles_per_s())
     text_cases = text_family_kernel_cases(fa, spin_cycles_per_s())
     pixel_cases = pixel_kernel_cases(fa, spin_cycles_per_s())
     by_path = {"v2a": {"flash_fwd": v2a_phase(fa)}}
@@ -3777,6 +3846,15 @@ def main(argv=None) -> int:
                                   ("pixel_train", pixel_cases["pixel_train"][kernel]),
                                   ("ring_block", rank_cases["ring_block"][kernel]),
                                   ("model2_block", rank_cases["model2_block"][kernel]))}})
+    flag = norm_cases["flagship_sample"]
+    kernels.append({
+        "name": "rms_norm", "route": "cuda",
+        "source": "multimodal_diffusion_torch/csrc/rms_norm.cu", "replaces": None,
+        "max_ulps": max(rec["max_ulps"] for rec in norm_cases.values()),
+        **{key: norm_cases["mvp_sample"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                          "bound_by")},
+        "flagship": {key: flag[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by")}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

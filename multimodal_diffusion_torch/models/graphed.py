@@ -30,9 +30,9 @@ Captures run in ``thread_local`` mode: the serving runner's finalizer
 threads copy results to the host while its scheduler thread may be
 capturing. A capture runs in the span ``denoiser.capture`` and a replay
 (copies in, the graph, clones out) in ``denoiser.replay``
-(``utils/profiling.py::span``). ``flash_forward.launches`` keeps counting
-kernel executions: the launches a capture records are taken back, and each
-replay adds them again.
+(``utils/profiling.py::span``). ``flash_forward.launches`` and
+``rms_norm.launches`` keep counting kernel executions: the launches a capture
+records are taken back, and each replay adds them again.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import Callable, Dict, Hashable, Optional, Tuple
 import torch
 
 from ..ops import flash_attention as fa
+from ..ops import rms_norm as rn
 from ..utils.profiling import span
 
 MAX_KEYS = 4  # the serving runner's batch shapes fit
@@ -68,11 +69,12 @@ def ineligible(model, tensors: Dict[str, Optional[torch.Tensor]],
 
 class CapturedCall:
     """One captured call: the graph, its static inputs and outputs, and the
-    flash forward launches it makes."""
+    flash forward and RMSNorm launches it makes."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Dict[str, Optional[torch.Tensor]],
-                 outputs: Dict[str, torch.Tensor], launches: int):
-        self.graph, self.inputs, self.outputs, self.launches = graph, inputs, outputs, launches
+                 outputs: Dict[str, torch.Tensor], launches: int, norm_launches: int):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.launches, self.norm_launches = launches, norm_launches
 
     def replay(self, tensors: Dict[str, Optional[torch.Tensor]]) -> Dict[str, torch.Tensor]:
         for name, t in tensors.items():
@@ -80,6 +82,7 @@ class CapturedCall:
                 self.inputs[name].copy_(t)
         self.graph.replay()
         fa.flash_forward.launches += self.launches
+        rn.rms_norm.launches += self.norm_launches
         return {name: t.clone() for name, t in self.outputs.items()}
 
 
@@ -169,9 +172,10 @@ class DenoiserGraphs:
         inputs = {name: None if t is None else t.clone(memory_format=torch.contiguous_format)
                   for name, t in tensors.items()}
         graph = torch.cuda.CUDAGraph()
-        before = fa.flash_forward.launches
+        before = fa.flash_forward.launches, rn.rms_norm.launches
         with torch.cuda.graph(graph, stream=self._stream(device),
                               capture_error_mode="thread_local"):
             outputs = fn(**inputs)
-        launches, fa.flash_forward.launches = fa.flash_forward.launches - before, before
-        return CapturedCall(graph, inputs, outputs, launches)
+        launches = fa.flash_forward.launches - before[0], rn.rms_norm.launches - before[1]
+        fa.flash_forward.launches, rn.rms_norm.launches = before
+        return CapturedCall(graph, inputs, outputs, *launches)

@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import mha_reference, multi_head_attention, padding_bias
 from ..ops.quant import Int8Weight, int8_linear
 from ..ops.ring_attention import ring_attention_local
+from ..ops.rms_norm import rms_norm, rms_norm_reference
 from ..ops.tokenize import pad_to_multiple
 from ..parallel import comm
 from ..parallel.sharding import tp_part
@@ -136,7 +137,11 @@ def split_dropout(modules: Sequence[nn.Module], dim: int, n: int, i: int) -> Non
 class RMSNorm(nn.Module):
     """y = weight * x / (sqrt(mean(x^2) + 1e-12) + eps): eps sits OUTSIDE the
     sqrt (the reference formula); the +1e-12 inside keeps exactly-zero rows
-    (CFG-dropped tokens) finite. Statistics in fp32."""
+    (CFG-dropped tokens) finite. Statistics in fp32.
+
+    A CUDA x that needs no gradient (sampling) takes the hand-written kernel
+    (``ops/rms_norm.py``), one launch; otherwise (training, the CPU) the plain
+    version runs under autograd."""
 
     def __init__(self, d: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -144,9 +149,10 @@ class RMSNorm(nn.Module):
         self.eps, self.dtype = eps, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        norm = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-12)
-        return (self.weight.float() * xf / (norm + self.eps)).to(self.dtype)
+        if x.is_cuda and not (torch.is_grad_enabled()
+                              and (x.requires_grad or self.weight.requires_grad)):
+            return rms_norm(x, self.weight, self.eps, self.dtype)
+        return rms_norm_reference(x, self.weight, self.eps, self.dtype)
 
 
 class LayerNorm(nn.Module):

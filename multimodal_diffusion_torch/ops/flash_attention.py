@@ -96,19 +96,20 @@ def source_tag(source: Path) -> str:
     return digest.hexdigest()[:16]
 
 
-def build(name: str = "flash_fwd") -> Path:
-    """Compile csrc/<name>.cu for sm_90a into BUILD_DIR (once per content of
-    the source and the headers beside it) and return the shared library's
-    path. The compiler's register and shared-memory report is kept beside it
-    as a .log. Safe to call for several sources at once from threads."""
-    source = SOURCES[name]
+def build(name: str = "flash_fwd", source: Optional[Path] = None) -> Path:
+    """Compile csrc/<name>.cu (or `source`, another kernel of csrc/) for
+    sm_90a into BUILD_DIR (once per content of the source and the headers
+    beside it) and return the shared library's path. The compiler's register
+    and shared-memory report is kept beside it as a .log. Safe to call for
+    several sources at once from threads."""
+    source = SOURCES[name] if source is None else source
     lib = BUILD_DIR / f"lib{name}_{source_tag(source)}.so"
     if lib.exists():
         return lib
     nvcc = _nvcc()
     if nvcc is None:
         raise RuntimeError(
-            "nvcc not found: the CUDA flash-attention kernels cannot be built")
+            f"nvcc not found: the CUDA kernel {source.name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,7 +9,7 @@ On a CUDA card only (marker `gpu`; skipped without one): replays against
 the eager pass at the mvp width and at the flagship's widths with two
 layers, both directions, with and without mouth tokens, int8 and sinusoid
 positions; outputs that outlive the next replay; a recapture after an
-in-place weight update; the flash forward's launch counter; the ctypes
+in-place weight update; the flash forward's and RMSNorm's launch counters; the ctypes
 launch captured in global mode; a sync-guided sampler that replays its CFG
 forward. Imports no JAX:
 
@@ -26,6 +26,7 @@ from multimodal_diffusion_torch.infer.ddim import sampler_from_config
 from multimodal_diffusion_torch.infer.sample_clip import build_components
 from multimodal_diffusion_torch.models import adapters, graphed
 from multimodal_diffusion_torch.ops import flash_attention as fa
+from multimodal_diffusion_torch.ops import rms_norm as rn
 from multimodal_diffusion_torch.utils import profiling as TP
 from multimodal_diffusion_torch.utils.io import (deep_update, latent_shapes_from_config,
                                                mvp_v2a_config, shrunk_config,
@@ -364,14 +365,16 @@ def test_launch_counter_counts_kernel_executions(cuda):
     cfg = flagship()
     model = card_model(cfg)
     layers = cfg["model"]["core"]["n_layers"]
-    fa.flash_forward.launches = 0
+    norms = 2 * layers + 1  # two a block and the final norm
+    fa.flash_forward.launches = rn.rms_norm.launches = 0
     with torch.inference_mode():
         args, kw = call_args(model, cfg, seed=0, device=cuda)
         for k in range(1, 5):
             model.denoise_tokens(*args, **kw)
             assert fa.flash_forward.launches == k * layers
+            assert rn.rms_norm.launches == k * norms
     (call,) = model.graphs.calls.values()
-    assert call.launches == layers
+    assert call.launches == layers and call.norm_launches == norms
 
 
 @pytest.mark.gpu
