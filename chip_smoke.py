@@ -280,7 +280,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import functools
 import gc
 import json
 import statistics
@@ -791,11 +790,11 @@ def v2a_phase(fa):
     cfg, model, run = v2a_workload(V2A_CLIPS, V2A_STEPS)
     setup_s = time.perf_counter() - t0
 
-    fa.flash_forward.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = run()
     first_s = time.perf_counter() - t0
-    launches = fa.flash_forward.launches
+    launches = launch_counts()["flash_fwd"]
     wav = out["audio"]
     expected = V2A_STEPS * cfg["model"]["core"]["n_layers"]
     if launches != expected:
@@ -819,8 +818,8 @@ def v2a_phase(fa):
     t_a = torch.from_numpy(rng.integers(0, 1000, B2)).cuda()
     keep = torch.cat([torch.ones(V2A_CLIPS), torch.zeros(V2A_CLIPS)]).cuda()
     with torch.inference_mode():
-        a = model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None, use_kernel=True)
-        b = model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None, use_kernel=False)
+        a, b = on_both_paths(
+            lambda: model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None))
     rel = {key: float((a[key].float() - b[key].float()).abs().max()
                       / b[key].float().abs().max()) for key in ("eps_v", "eps_a")}
     if max(rel.values()) > DENOISE_REL_TOL:
@@ -860,11 +859,11 @@ def train_phase(fa):
     del before
     ema_before = {k: v.clone() for k, v in bundle.state.ema.items()}
 
-    reset_launch_counts(fa)
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     logs = []
     run(TRAIN_STEPS, log_fn=lambda step, m: logs.append(m))
-    launches = launch_counts(fa)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = TRAIN_STEPS * cfg["model"]["core"]["n_layers"]
     if any(n != expected for n in launches.values()):
@@ -904,21 +903,38 @@ def train_phase(fa):
     return launches
 
 
-def reset_launch_counts(fa) -> None:
-    fa.flash_forward.launches = 0
-    fa.flash_backward.dkdv_launches = fa.flash_backward.dq_launches = 0
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
-def launch_counts(fa) -> dict:
-    return {"flash_fwd": fa.flash_forward.launches,
-            "flash_bwd_dkdv": fa.flash_backward.dkdv_launches,
-            "flash_bwd_dq": fa.flash_backward.dq_launches}
+def reset_launch_counts() -> None:
+    from multimodal_diffusion_torch.ops import cuda_kernels as ck
+
+    ck.LAUNCHES.clear()
+
+
+def launch_counts() -> dict:
+    """The flash kernels' executions since the last reset."""
+    from multimodal_diffusion_torch.ops import cuda_kernels as ck
+
+    return {name: ck.LAUNCHES[name] for name in FLASH_KERNELS}
+
+
+def on_both_paths(fn) -> list:
+    """[fn() with the kernels' attention path forced, fn() with dense
+    attention forced]."""
+    from multimodal_diffusion_torch.ops.attention import attention_path
+
+    outs = []
+    for path in ("kernel", "dense"):
+        with attention_path(path):
+            outs.append(fn())
+    return outs
 
 
 def kernel_vs_dense_grads(TT, bundle, batch, with_recon=None):
     """One full-width gradient of the train loss (eval mode: no dropout; a
     fixed batch and draws; audio the target) with the kernels and with dense
-    attention: {use_kernel: {parameter name: grad}}, the largest relative
+    attention: {kernel path: {parameter name: grad}}, the largest relative
     difference over the qkv weight grads, and that of the global grad norm."""
     import torch
 
@@ -926,13 +942,14 @@ def kernel_vs_dense_grads(TT, bundle, batch, with_recon=None):
     sc = bundle.step_config
     draws = TT.draw_step_randomness(torch.Generator(device="cuda").manual_seed(7), sc)
     dev_batch = TT.batch_to_device(batch, bundle.device)
-    grads = {}
-    for use_kernel in (True, False):
-        loss, _ = TT.train_loss(model, dataclasses.replace(sc, use_kernel=use_kernel),
-                                bundle.abar_v, bundle.abar_a, dev_batch, 0.0, draws, with_recon)
+    def grads_of_loss():
+        loss, _ = TT.train_loss(model, sc, bundle.abar_v, bundle.abar_a, dev_batch, 0.0,
+                                draws, with_recon)
         named = [(n, p) for n, p in model.named_parameters()]
         gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-        grads[use_kernel] = {n: g for (n, _), g in zip(named, gs) if g is not None}
+        return {n: g for (n, _), g in zip(named, gs) if g is not None}
+
+    grads = dict(zip((True, False), on_both_paths(grads_of_loss)))
     model.train()
     qkv = [n for n in grads[False] if n.endswith("attn.qkv.weight")]
     qkv_rel = max(float((grads[True][n] - grads[False][n]).abs().max())
@@ -961,11 +978,11 @@ def spec8_train_phase(fa):
     run(TRAIN_WARMUP)
     warmup_s = time.perf_counter() - t0
 
-    reset_launch_counts(fa)
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     logs = []
     run(SPEC8_TRAIN_STEPS, log_fn=lambda step, m: logs.append((step, m)))
-    launches = launch_counts(fa)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_layers = cfg["model"]["core"]["n_layers"]
     expected = SPEC8_TRAIN_STEPS * n_layers
@@ -1076,12 +1093,12 @@ def spec8_v2a_phases(fa):
     n_layers = cfg["model"]["core"]["n_layers"]
     expected = V2A_STEPS * n_layers
 
-    reset_launch_counts(fa)
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     wav = run()["audio"]
     first_s = time.perf_counter() - t0
-    launches = launch_counts(fa)
+    launches = launch_counts()
     if launches != {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
         raise AssertionError(f"kernel launches on the flagship v2a path {launches}, expected "
                              f"{expected} forward and no backward")
@@ -1095,7 +1112,7 @@ def spec8_v2a_phases(fa):
 
     # one full-width denoiser forward with mouth tokens, kernel vs dense (bf16)
     with torch.inference_mode():
-        a, b = (spec8_denoise(model, use_kernel=use_kernel) for use_kernel in (True, False))
+        a, b = on_both_paths(lambda: spec8_denoise(model))
     if a["h_m"].shape != (2 * V2A_CLIPS, 288, 1024):
         raise AssertionError(f"h_m has shape {tuple(a['h_m'].shape)}")
     rel = {key: float((a[key].float() - b[key].float()).abs().max()
@@ -1120,11 +1137,11 @@ def spec8_v2a_phases(fa):
     torch.cuda.reset_peak_memory_stats()
     for sampler in ("ddim", "dpmpp_2m"):
         unguided = wav if sampler == "ddim" else run({"sampler": sampler})["audio"]
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         guided = run({"sampler": sampler, **SYNC_GUIDANCE})["audio"]
         seconds = time.perf_counter() - t0
-        got = launch_counts(fa)
+        got = launch_counts()
         if got != want:
             raise AssertionError(f"kernel launches in a guided {sampler} batch {got}, "
                                  f"expected {want}")
@@ -1231,7 +1248,7 @@ def run_cli(fa, argv):
             seen["logs"].append((step, dict(scalars)))
             super().write(step, scalars)
 
-    reset_launch_counts(fa)
+    reset_launch_counts()
     copies = loader.copy_to_device.batches
     device_resident_batches.last_upload = None
     torch.cuda.reset_peak_memory_stats()
@@ -1242,7 +1259,7 @@ def run_cli(fa, argv):
             mock.patch.object(train_joint, "CheckpointManager", Manager), \
             mock.patch.object(train_joint, "MetricWriter", Writer):
         state = train_joint.main(argv)
-    seen.update(seconds=time.perf_counter() - t0, state=state, launches=launch_counts(fa),
+    seen.update(seconds=time.perf_counter() - t0, state=state, launches=launch_counts(),
                 host_batch_copies=loader.copy_to_device.batches - copies,
                 upload=device_resident_batches.last_upload,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1454,13 +1471,13 @@ def ref_ckpt_phase(fa):
                   else {"prompt_modality": "audio", "prompt_audio": audio})
             times = []
             for rep in range(2):
-                reset_launch_counts(fa)
+                reset_launch_counts()
                 t0 = time.perf_counter()
                 out = sample_one_direction(cfg=cfg, model=model, device="cuda",
                                            generator=torch.Generator().manual_seed(3), **kw)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-                got = launch_counts(fa)
+                got = launch_counts()
                 if got != {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
                     raise AssertionError(f"reference {direction}: launches {got}, expected "
                                          f"{expected} forward")
@@ -1486,8 +1503,8 @@ def ref_ckpt_phase(fa):
         t_a = torch.from_numpy(rng.integers(0, 1000, B2)).cuda()
         keep = torch.cat([torch.ones(V2A_CLIPS), torch.zeros(V2A_CLIPS)]).cuda()
         with torch.inference_mode():
-            a, b = (model.denoise_tokens(tok_v, tok_a, t_v, t_a, (6, 4, 4), keep, None,
-                                         use_kernel=k) for k in (True, False))
+            a, b = on_both_paths(lambda: model.denoise_tokens(tok_v, tok_a, t_v, t_a,
+                                                              (6, 4, 4), keep, None))
         rel = {key: float((a[key].float() - b[key].float()).abs().max()
                           / b[key].float().abs().max()) for key in ("eps_v", "eps_a")}
         if max(rel.values()) > DENOISE_REL_TOL:
@@ -1530,11 +1547,10 @@ def fixture_kernel_checks(fa, cfg, model, bundle, batch, frames):
         keep = torch.cat([torch.ones(B), torch.zeros(B)]).to(dev)
         t_v = torch.zeros(2 * B, dtype=torch.long, device=dev)
         t_a = torch.from_numpy(rng.integers(0, 1000, 2 * B)).to(dev)
-        a, b = (model.denoise_tokens(
+        a, b = on_both_paths(lambda: model.denoise_tokens(
             torch.cat([tok_v, tok_v]), torch.cat([tok_a, tok_a]), t_v, t_a,
-            model.video_grid(z_v.shape), keep, None, use_kernel=use_kernel,
-            tok_m=torch.cat([tok_m, tok_m]), keep_m=keep, mouth_grid=mgrid)
-            for use_kernel in (True, False))
+            model.video_grid(z_v.shape), keep, None,
+            tok_m=torch.cat([tok_m, tok_m]), keep_m=keep, mouth_grid=mgrid))
     dtype = a["h_v"].dtype
     N = tok_v.shape[1] + tok_a.shape[1] + tok_m.shape[1]
     H = mc.core.n_heads
@@ -1615,10 +1631,10 @@ def orbax_fixture_phase(fa):
     shapes = latent_shapes_from_config(cfg, 2)
     _, _, T, H, W = shapes["video"]
     frames = prompt_frames(2, T, H, W, seed=12)
-    reset_launch_counts(fa)
+    reset_launch_counts()
     wav = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
                                prompt_video=frames, device="cuda")["audio"]
-    v2a_launches = launch_counts(fa)
+    v2a_launches = launch_counts()
     if v2a_launches != {"flash_fwd": steps * n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}:
         raise AssertionError(f"fixture v2a launches {v2a_launches}")
     if not np.all(np.isfinite(wav)) or np.abs(wav).max() > 1:
@@ -1639,9 +1655,9 @@ def orbax_fixture_phase(fa):
     batch = {"video": prompt_frames(2, T, H, W, seed=14),
              "audio": rng.uniform(-1, 1, shapes["audio"]).astype(np.float32),
              "has_video": np.ones(2, bool), "has_audio": np.ones(2, bool)}
-    reset_launch_counts(fa)
+    reset_launch_counts()
     metrics = bundle.train_step(state, batch, 0.0)
-    train_launches = launch_counts(fa)
+    train_launches = launch_counts()
     loss = float(metrics["loss"])
     if train_launches != {name: n_layers for name in train_launches}:
         raise AssertionError(f"restored train step launches {train_launches}")
@@ -1687,12 +1703,12 @@ def spec8_stream_phase(fa):
     t0 = time.perf_counter()
     run()
     batch_s = time.perf_counter() - t0
-    reset_launch_counts(fa)
+    reset_launch_counts()
     t0 = time.perf_counter()
     wav = stream_video_to_audio(frames, cfg=cfg, model=model, device="cuda")
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    launches = launch_counts(fa)
+    launches = launch_counts()
     n_layers = cfg["model"]["core"]["n_layers"]
     want = {"flash_fwd": batches * V2A_STEPS * n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
     if launches != want:
@@ -1778,8 +1794,7 @@ def t2i_denoise_check(model, batch: int) -> float:
     t = torch.from_numpy(rng.integers(0, c.steps, 2 * batch))
     with torch.inference_mode():
         text2, pad2 = encode_prompts(model, ids, neg)
-        a, b = (model.denoise(z.cuda(), t.cuda(), text2, pad2, use_kernel=k)
-                for k in (True, False))
+        a, b = on_both_paths(lambda: model.denoise(z.cuda(), t.cuda(), text2, pad2))
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
@@ -1809,11 +1824,11 @@ def t2i_512_phase(fa, work_dir):
     launches = {"flash_fwd": 0}
 
     def batch(**kw):
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         imgs = run(**kw)
         wall = time.perf_counter() - t0
-        got = launch_counts(fa)
+        got = launch_counts()
         if got != want:
             raise AssertionError(f"t2i batch {kw}: launches {got}, expected {want}")
         if imgs.shape != shape or imgs.dtype != np.uint8:
@@ -1841,13 +1856,13 @@ def t2i_512_phase(fa, work_dir):
     # the CLI in this process, on the same checkpoint and seed
     overlay = work_dir / "t2i_overlay.yaml"
     overlay.write_text(f"paths:\n  ckpt_dir: {json.dumps(str(ckpt_dir))}\n")
-    reset_launch_counts(fa)
+    reset_launch_counts()
     t0 = time.perf_counter()
     pngs = sample_t2i.main(["--config", str(CONFIG), str(overlay), "--prompt", *PROMPTS,
                             "--negative", *[NEGATIVE] * T2I_BATCH, "--seed", "1",
                             "--out-dir", str(work_dir / "t2i_png")])
     cli_s = time.perf_counter() - t0
-    got = launch_counts(fa)
+    got = launch_counts()
     if got != want:
         raise AssertionError(f"t2i CLI launches {got}, expected {want}")
     launches["flash_fwd"] += got["flash_fwd"]
@@ -1924,11 +1939,11 @@ def t2i_train_phase(fa):
     torch.cuda.reset_peak_memory_stats()
     step_s, per_step = [], []
     for _ in range(T2I_TRAIN_STEPS):
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         losses.append(float(step(images, ids)))
         step_s.append(time.perf_counter() - t0)
-        per_step.append(launch_counts(fa))
+        per_step.append(launch_counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # 16 core layers and the text encoder's 4, each kernel once a layer
     expected = c.core.n_layers + c.text.core.n_layers
@@ -1943,11 +1958,12 @@ def t2i_train_phase(fa):
     draws = TL.draw_t2i_randomness(torch.Generator(device="cuda").manual_seed(7), c, n)
     abar = torch.as_tensor(TL.alpha_bar(c), device="cuda")
     ids_n = torch.as_tensor(ids[:n], device="cuda")
-    grads = {}
-    for use_kernel in (True, False):
-        loss = TL.t2i_loss(model, images[:n], ids_n, draws, abar, use_kernel)
+    def grads_of_loss():
+        loss = TL.t2i_loss(model, images[:n], ids_n, draws, abar)
         gs = torch.autograd.grad(loss, params, allow_unused=True)
-        grads[use_kernel] = {k: g for (k, _), g in zip(named, gs) if g is not None}
+        return {k: g for (k, _), g in zip(named, gs) if g is not None}
+
+    grads = dict(zip((True, False), on_both_paths(grads_of_loss)))
     qkv = [k for k in grads[False] if k.endswith("attn.qkv.weight")]
     qkv_rel = max(float((grads[True][k] - grads[False][k]).abs().max())
                   / float(grads[False][k].abs().max()) for k in qkv)
@@ -2006,12 +2022,12 @@ def t2a_phase(fa):
     want = {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
     times, launches = [], {"flash_fwd": 0}
     for _ in range(3):
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         mel = sample(ids, neg, generator=torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        got = launch_counts(fa)
+        got = launch_counts()
         if got != want:
             raise AssertionError(f"t2a launches {got}, expected {want}")
         launches["flash_fwd"] += got["flash_fwd"]
@@ -2123,11 +2139,11 @@ def serve_spec8_phase(fa):
         warm_s = time.perf_counter() - t0
         warm_batches = runner.scheduler.batches_run
 
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         done = runner.process_manifest(work / "requests.json")
         wall_s = time.perf_counter() - t0
-        launches = launch_counts(fa)
+        launches = launch_counts()
         batches = runner.scheduler.batches_run - warm_batches
         want = {"flash_fwd": batches * per_batch, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
         if launches != want:
@@ -2175,7 +2191,7 @@ def serve_spec8_phase(fa):
                 "output": str(work / f"watch_{i}.wav")}))
         before = runner.scheduler.batches_run
         stop = threading.Event()
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         watcher = threading.Thread(target=runner.watch, args=(inbox,),
                                    kwargs={"poll_s": 0.05, "stop_event": stop}, daemon=True)
@@ -2194,7 +2210,7 @@ def serve_spec8_phase(fa):
         if len(results) != SERVE_WATCH or not all(r["ok"] for r in results):
             raise AssertionError(f"watch results {results}")
         watch_batches = runner.scheduler.batches_run - before
-        got = launch_counts(fa)
+        got = launch_counts()
         if got["flash_fwd"] != watch_batches * per_batch:
             raise AssertionError(f"watch launches {got} in {watch_batches} batches")
         launches["flash_fwd"] += got["flash_fwd"]
@@ -2308,11 +2324,11 @@ def int8_phases(fa, t2i_bf16):
                                    bf16_params=True)
     per_batch = V2A_STEPS * cfg["model"]["core"]["n_layers"]
     want = {"flash_fwd": per_batch, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
-    reset_launch_counts(fa)
+    reset_launch_counts()
     t0 = time.perf_counter()
     wav = run()["audio"]
     first_s = time.perf_counter() - t0
-    spec8 = launch_counts(fa)
+    spec8 = launch_counts()
     if spec8 != want:
         raise AssertionError(f"int8 flagship v2a launches {spec8}, expected {want}")
     check_wav(wav, cfg, "int8 flagship v2a")
@@ -2353,11 +2369,11 @@ def int8_phases(fa, t2i_bf16):
     want = {"flash_fwd": expected, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
     t2i_launches, t2i_times = {"flash_fwd": 0}, []
     for i in range(4):  # a warm-up, then 3 timed batches
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         imgs = sample(sampler="dpmpp_2m")
         t2i_times.append(time.perf_counter() - t0)
-        got = launch_counts(fa)
+        got = launch_counts()
         if got != want:
             raise AssertionError(f"int8 t2i serving batch launches {got}, expected {want}")
         shape = (T2I_SERVE_BATCH, tc.image_size, tc.image_size, 3)
@@ -2455,12 +2471,12 @@ def pixel_train_phase(fa, work_dir):
     B = int(cfg["data"]["batch_size"])
     n_layers = int(cfg["model"]["core"]["n_layers"])
     steps = PIXEL_WARMUP + PIXEL_STEPS
-    reset_launch_counts(fa)
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     done = train_pixel.main(["--config", *args, "--max-steps", str(steps)])
     cli_s = time.perf_counter() - t0
-    launches = launch_counts(fa)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if done != steps or any(n != n_layers * steps for n in launches.values()):
         raise AssertionError(f"pixel train: {done} steps, launches {launches}, expected "
@@ -2492,11 +2508,12 @@ def pixel_train_phase(fa, work_dir):
     draws = draw_pixel_randomness(torch.Generator(device="cuda").manual_seed(7), c, B)
     abar = torch.as_tensor(pixel_schedule(c)[1], device="cuda")
     named = list(model.named_parameters())
-    grads = {}
-    for use_kernel in (True, False):
-        loss = pixel_loss(model, batch.cuda(), draws, abar, use_kernel)
+    def grads_of_loss():
+        loss = pixel_loss(model, batch.cuda(), draws, abar)
         gs = torch.autograd.grad(loss, [p for _, p in named])
-        grads[use_kernel] = {k: g for (k, _), g in zip(named, gs)}
+        return {k: g for (k, _), g in zip(named, gs)}
+
+    grads = dict(zip((True, False), on_both_paths(grads_of_loss)))
     qkv = [k for k in grads[False] if k.endswith("attn.qkv.weight")]
     qkv_rel = max(float((grads[True][k] - grads[False][k]).abs().max())
                   / float(grads[False][k].abs().max()) for k in qkv)
@@ -2540,13 +2557,13 @@ def pixel_sample_phase(fa, work_dir):
     n_layers = int(cfg["model"]["core"]["n_layers"])
     T = int(cfg["diffusion"]["image"]["steps"])
     want = {"flash_fwd": T * n_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
-    reset_launch_counts(fa)
+    reset_launch_counts()
     t0 = time.perf_counter()
     pngs = sample_pixel.main(["--config", *args, "--num", str(PIXEL_SAMPLES),
                               "--out-dir", str(work_dir / "png"), "--seed", "1"])
     cli_s = time.perf_counter() - t0
-    if launch_counts(fa) != want:
-        raise AssertionError(f"pixel sampler CLI launches {launch_counts(fa)}, expected {want}")
+    if launch_counts() != want:
+        raise AssertionError(f"pixel sampler CLI launches {launch_counts()}, expected {want}")
     shape = (PIXEL_SAMPLES, cfg["image"]["size"], cfg["image"]["size"], 3)
     pixels = []
     for p in pngs:
@@ -2564,14 +2581,14 @@ def pixel_sample_phase(fa, work_dir):
     model = sample_pixel.build_pixel(cfg, "cuda")
     calls = []
     for profiled in (False, True):
-        reset_launch_counts(fa)
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
                 contextlib.nullcontext() as prof:
             t0 = time.perf_counter()
             calls.append(sample_pixel.sample_pixel_images(model, PIXEL_SAMPLES, seed=1))
             call_s = time.perf_counter() - t0
-        if launch_counts(fa) != want:
-            raise AssertionError(f"pixel sampler launches {launch_counts(fa)}, expected {want}")
+        if launch_counts() != want:
+            raise AssertionError(f"pixel sampler launches {launch_counts()}, expected {want}")
         launches["flash_fwd"] += want["flash_fwd"]
         if profiled:
             profiled_s = call_s
@@ -2597,13 +2614,13 @@ def pixel_sample_phase(fa, work_dir):
         raise AssertionError("the CLI's PNGs are not the sampler's images of the same seed")
 
     # one forward of the sampler's batch with and without the kernel
-    reset_launch_counts(fa)
+    reset_launch_counts()
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((PIXEL_SAMPLES,) + model.cfg.image_shape, generator=g, device="cuda")
     t = torch.randint(0, T, (PIXEL_SAMPLES,), generator=g, device="cuda")
     with torch.inference_mode():
-        a, b = (model(x, t, use_kernel=k) for k in (True, False))
-    launches["flash_fwd"] += launch_counts(fa)["flash_fwd"]
+        a, b = on_both_paths(lambda: model(x, t))
+    launches["flash_fwd"] += launch_counts()["flash_fwd"]
     rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
     if not rel <= PIXEL_DENOISE_REL_TOL:
         raise AssertionError(f"PixelDiT kernel vs dense: {rel} > {PIXEL_DENOISE_REL_TOL}")
@@ -2671,9 +2688,9 @@ def spec8_remat_phase(fa, smi):
         run(TRAIN_WARMUP)
         torch.cuda.reset_peak_memory_stats()
         logs = []
-        reset_launch_counts(fa)
+        reset_launch_counts()
         run(REMAT_STEPS, log_fn=lambda step, m: logs.append(m))
-        launches = launch_counts(fa)
+        launches = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {"flash_fwd": (2 if remat else 1) * n_layers, "flash_bwd_dkdv": n_layers,
                 "flash_bwd_dq": n_layers}
@@ -2934,11 +2951,11 @@ def multi_rank_step(fa, name: str, mesh=None, ckpt_dir=None) -> dict:
         start, start_ema = whole(bundle.model.named_parameters()), whole(st.ema.items())
     d = {k: torch.as_tensor(v).cuda() for k, v in draws.items()}
     torch.cuda.synchronize()
-    reset_launch_counts(fa)
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     metrics = bundle.train_step(st, batch, 0.0, d)
     torch.cuda.synchronize()
-    launches = launch_counts(fa)
+    launches = launch_counts()
     grads = dict(taken)
     if check:
         norms = [metrics["grad_norm"], bundle.train_step(st, batch, 0.0, d)["grad_norm"]]
@@ -3109,7 +3126,7 @@ def multi_rank_int8_sample(fa, mesh_kw, frames) -> dict:
     bad = [why for n_out, k_in in shapes if (why := int_mm_unservable(k_in, n_out))]
     if bad:
         raise AssertionError(f"int8 under {mesh_kw}: {bad}")
-    reset_launch_counts(fa)
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sample_one_direction(cfg=cfg, model=model, prompt_modality="video",
@@ -3117,7 +3134,7 @@ def multi_rank_int8_sample(fa, mesh_kw, frames) -> dict:
                                generator=torch.Generator().manual_seed(5))
     torch.cuda.synchronize()
     res = {"wav": out["audio"], "s": time.perf_counter() - t0,
-           "launches": launch_counts(fa), "weight_shapes": [list(x) for x in shapes]}
+           "launches": launch_counts(), "weight_shapes": [list(x) for x in shapes]}
     del model
     torch.cuda.empty_cache()
     return res
@@ -3166,9 +3183,9 @@ def multi_rank_body(rank: int, world: int) -> dict:
         return [out.detach()] + [t.grad for t in leaves]
 
     first = ring_call()
-    reset_launch_counts(fa)
+    reset_launch_counts()
     again = ring_call()
-    res["ring_launches"] = launch_counts(fa)
+    res["ring_launches"] = launch_counts()
     res["ring_bit_identical"] = all(torch.equal(a, b) for a, b in zip(first, again))
     res["ring"] = [t.float().cpu().numpy() for t in first]
     times = {"fwd": [], "fwd_bwd": []}
@@ -3214,13 +3231,14 @@ def multi_rank_phase(fa, cycles_per_s, smi):
     import numpy as np
     import torch
 
+    from multimodal_diffusion_torch.ops import cuda_kernels as ck
     from multimodal_diffusion_torch.parallel.launch import run_ranks
     from multimodal_diffusion_torch.tools.dryrun_multichip import dryrun_multichip
 
     import shutil
 
-    for name in fa.SOURCES:  # built once here, before the ranks load them
-        fa._library(name)
+    for name in ck.SOURCES:  # built once here, before the ranks load them
+        ck.build(name)
     shutil.rmtree(TP_CKPT_DIR, ignore_errors=True)
     t_phase = time.perf_counter()
     ranks = run_ranks(multi_rank_body, MULTI_RANK_WORLD, backend=MULTI_RANK_BACKEND,
@@ -3265,7 +3283,7 @@ def multi_rank_phase(fa, cycles_per_s, smi):
         t.detach()[:, :, n:].contiguous() for t in dev[1:]]
     vshard = vd[:, n:].contiguous()
     n_valid = [int(x) for x in vshard.sum(dim=1)]
-    reset_launch_counts(fa)
+    reset_launch_counts()
     o, lse, fwd_rec = forward_case(fa, "ring_block", *shard, vshard, n_valid, cycles_per_s)
     dl = torch.as_tensor(dout[:, :, :n]).to("cuda", torch.bfloat16).contiguous()
     bwd_recs = backward_case(fa, "ring_block", *shard, vshard, o, lse, dl, n_valid,
@@ -3562,9 +3580,9 @@ def bench_phase(fa, smi) -> dict:
     paths = {}
     for name, argv, per_call in BENCH_RUNS:
         task = argv[argv.index("--task") + 1] if "--task" in argv else "av"
-        reset_launch_counts(fa)
+        reset_launch_counts()
         run = bench.main(argv)
-        got = launch_counts(fa)
+        got = launch_counts()
         if task == "train":
             want = {k: per_call * run.calls for k in got}
         else:
@@ -3682,10 +3700,10 @@ def tools_phase(fa, smi) -> dict:
             and num["bf16_rel_err"] < 0.01):
         raise AssertionError(f"quant_probe: {q}")
 
-    reset_launch_counts(fa)
+    reset_launch_counts()
     t0 = time.perf_counter()
     m = quiet_call(mfu_probe.main, [])
-    paths["mfu_probe"] = launch_counts(fa)
+    paths["mfu_probe"] = launch_counts()
     emit({"phase": "mfu_probe", "device": smi, "seconds": time.perf_counter() - t0,
           "launches": paths["mfu_probe"], **m})
     if not (finite_numbers(m) and m["attn_shape"] == [16, 4, 1152, 128]
@@ -3696,10 +3714,10 @@ def tools_phase(fa, smi) -> dict:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=REPO / "runs"))
     try:
         configs = write_eval_corpus(work)
-        reset_launch_counts(fa)
+        reset_launch_counts()
         t0 = time.perf_counter()
         report = quiet_call(eval_av_quality.main, ["--config", *configs, "--n", str(EVAL_CLIPS)])
-        paths["eval_av_quality"] = launch_counts(fa)
+        paths["eval_av_quality"] = launch_counts()
         want = eval_report_keys(["", "0", "_mouth", "_mouth0"])
         emit({"phase": "eval_av_quality", "device": smi, "seconds": time.perf_counter() - t0,
               "launches": paths["eval_av_quality"], "report": report})
@@ -3738,18 +3756,13 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
+    from multimodal_diffusion_torch.ops import cuda_kernels as ck
     from multimodal_diffusion_torch.ops import rms_norm as rn
 
-    build_fns = {name: functools.partial(fa.build, name) for name in fa.SOURCES}
-    build_fns["rms_norm"] = rn.build
-    with ThreadPoolExecutor(len(build_fns)) as pool:  # one nvcc per source, together
-        libs = dict(zip(build_fns, pool.map(lambda build: build(), build_fns.values())))
+    with ThreadPoolExecutor(len(ck.SOURCES)) as pool:  # one nvcc per source, together
+        libs = dict(zip(ck.SOURCES, pool.map(ck.build, ck.SOURCES)))
     built = {}
     for name, lib in libs.items():
-        if name in fa.SOURCES:
-            fa._library(name)
-        else:
-            rn._library()
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         built[name] = {"library": lib.name, "ptxas": [
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}

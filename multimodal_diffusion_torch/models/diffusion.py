@@ -341,32 +341,30 @@ class AVDiffusionModel(nn.Module):
                        video_grid: Tuple[int, int, int],
                        keep_v: Optional[torch.Tensor] = None,
                        keep_a: Optional[torch.Tensor] = None,
-                       use_kernel: Optional[bool] = None,
                        tok_m: Optional[torch.Tensor] = None,
                        keep_m: Optional[torch.Tensor] = None,
                        mouth_grid: Optional[Tuple[int, int, int]] = None
                        ) -> Dict[str, torch.Tensor]:
         """Full denoiser pass: {'eps_v', 'eps_a', 'h_v', 'h_a'} and, with
         mouth tokens, 'h_m' (their contextualized features, for the sync
-        loss; they attend in the core but have no head output).
-        ``use_kernel`` picks the attention backend (None: by device). A call
+        loss; they attend in the core but have no head output). A call
         that ``graphed.ineligible`` lets through replays a captured graph of
         this pass (``self.graphs``) and returns fresh tensors."""
         tensors = {"tok_v": tok_v, "tok_a": tok_a, "t_v": t_v, "t_a": t_a, "keep_v": keep_v,
                    "keep_a": keep_a, "tok_m": tok_m, "keep_m": keep_m}
         run = functools.partial(self._denoise_tokens, video_grid=video_grid,
-                                use_kernel=use_kernel, mouth_grid=mouth_grid)
-        if graphed.ineligible(self, tensors, use_kernel):
+                                mouth_grid=mouth_grid)
+        if graphed.ineligible(self, tensors):
             return run(**tensors)
         statics = (tuple(video_grid), None if mouth_grid is None else tuple(mouth_grid))
         return self.graphs(self, run, tensors, statics)
 
-    def _denoise_tokens(self, tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a, use_kernel,
+    def _denoise_tokens(self, tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a,
                         tok_m, keep_m, mouth_grid) -> Dict[str, torch.Tensor]:
         X, Nv = self.embed_tokens(tok_v, tok_a, t_v, t_a, video_grid, keep_v, keep_a,
                                   tok_m, keep_m, mouth_grid)
         Na = tok_a.shape[1]
-        H = self.core(X, use_kernel=use_kernel)
+        H = self.core(X)
         Hv, Ha = H[:, :Nv], H[:, Nv:Nv + Na]
         eps = self.head({"video": Hv, "audio": Ha})
         out = {"eps_v": eps["video"], "eps_a": eps["audio"], "h_v": Hv, "h_a": Ha}
@@ -377,12 +375,10 @@ class AVDiffusionModel(nn.Module):
     def denoise_latents(self, z_v: torch.Tensor, z_a: torch.Tensor,
                         t_v: torch.Tensor, t_a: torch.Tensor,
                         keep_v: Optional[torch.Tensor] = None,
-                        keep_a: Optional[torch.Tensor] = None,
-                        use_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+                        keep_a: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Latent-space wrapper: tokenize -> denoise -> fold eps back."""
         out = self.denoise_tokens(self.tokenize_video(z_v), self.tokenize_audio(z_a),
-                                  t_v, t_a, self.video_grid(z_v.shape), keep_v, keep_a,
-                                  use_kernel)
+                                  t_v, t_a, self.video_grid(z_v.shape), keep_v, keep_a)
         return {
             "eps_v": self.untokenize_video(out["eps_v"], z_v.shape),
             "eps_a": self.untokenize_audio(out["eps_a"], z_a.shape),
@@ -397,8 +393,7 @@ class AVDiffusionModel(nn.Module):
                 keep_v: Optional[torch.Tensor] = None,
                 keep_a: Optional[torch.Tensor] = None,
                 keep_m: Optional[torch.Tensor] = None,
-                with_recon: bool = False,
-                use_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+                with_recon: bool = False) -> Dict[str, torch.Tensor]:
         """End-to-end training forward: encode -> q_sample (with the pre-drawn
         latent noise) -> denoise. Returns the token-space predictions
         {'eps_v', 'eps_a'}, the contextualized features {'h_v', 'h_a'} and the
@@ -439,7 +434,7 @@ class AVDiffusionModel(nn.Module):
                 keep_m = torch.zeros(video.shape[0], device=video.device)
         out = self.denoise_tokens(self.tokenize_video(z_vt), self.tokenize_audio(z_at),
                                   t_v, t_a, self.video_grid(z_vt.shape), keep_v, keep_a,
-                                  use_kernel, tok_m, keep_m, mgrid)
+                                  tok_m, keep_m, mgrid)
         out["eps_true_v"] = self.tokenize_video(
             prediction_target(z_v0_d, eps_v, t_v, alpha_bar_v, self.cfg.param_v))
         out["eps_true_a"] = self.tokenize_audio(

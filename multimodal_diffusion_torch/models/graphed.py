@@ -6,12 +6,12 @@ sizes the port samples, issuing its few hundred launches one at a time from
 Python takes longer than the card takes to run them. ``DenoiserGraphs``
 captures a call once per static key as a ``torch.cuda.CUDAGraph`` and
 replays it for the calls after. The graph holds the same launches as the
-eager call, the hand-written flash forward among them, at the same dtypes.
+eager call, the hand-written kernels among them, at the same dtypes.
 
   * ``ineligible`` names why a call runs eagerly: a model in training
-    mode, grad enabled, dense attention (``use_kernel=False``), a core
-    layout over several ranks, or operands off CUDA. Every other call takes
-    a graph;
+    mode, grad enabled, dense attention forced (``ops/attention.py::
+    attention_path``), a core layout over several ranks, or operands off
+    CUDA. Every other call takes a graph;
   * the key (``DenoiserGraphs.key``): each tensor argument's shape, dtype and
     device (None for an absent one), the token grids, whether inference mode
     is on, and each parameter's storage address and version counter, so an
@@ -30,9 +30,9 @@ Captures run in ``thread_local`` mode: the serving runner's finalizer
 threads copy results to the host while its scheduler thread may be
 capturing. A capture runs in the span ``denoiser.capture`` and a replay
 (copies in, the graph, clones out) in ``denoiser.replay``
-(``utils/profiling.py::span``). ``flash_forward.launches`` and
-``rms_norm.launches`` keep counting kernel executions: the launches a capture
-records are taken back, and each replay adds them again.
+(``utils/profiling.py::span``). ``ops/cuda_kernels.py::LAUNCHES`` keeps
+counting kernel executions, whichever kernels the call launches: what a
+capture counts is taken back, and each replay adds it again.
 """
 
 from __future__ import annotations
@@ -42,15 +42,14 @@ from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
-from ..ops import flash_attention as fa
-from ..ops import rms_norm as rn
+from ..ops import cuda_kernels as ck
+from ..ops.attention import forced_path
 from ..utils.profiling import span
 
 MAX_KEYS = 4  # the serving runner's batch shapes fit
 
 
-def ineligible(model, tensors: Dict[str, Optional[torch.Tensor]],
-               use_kernel: Optional[bool]) -> Optional[str]:
+def ineligible(model, tensors: Dict[str, Optional[torch.Tensor]]) -> Optional[str]:
     """Why a ``denoise_tokens`` call of `model` on `tensors` runs eagerly,
     or None when it takes a graph."""
     L = model.core.layout
@@ -58,7 +57,7 @@ def ineligible(model, tensors: Dict[str, Optional[torch.Tensor]],
         return "training mode"
     if torch.is_grad_enabled():
         return "grad enabled"
-    if use_kernel is False:
+    if forced_path() == "dense":
         return "dense attention"
     if (L.tp_n, L.ctx_n, L.pipe_n) != (1, 1, 1):
         return "core layout over several ranks"
@@ -69,20 +68,19 @@ def ineligible(model, tensors: Dict[str, Optional[torch.Tensor]],
 
 class CapturedCall:
     """One captured call: the graph, its static inputs and outputs, and the
-    flash forward and RMSNorm launches it makes."""
+    kernel launches it makes, by kernel."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Dict[str, Optional[torch.Tensor]],
-                 outputs: Dict[str, torch.Tensor], launches: int, norm_launches: int):
+                 outputs: Dict[str, torch.Tensor], launches: "collections.Counter[str]"):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.launches, self.norm_launches = launches, norm_launches
+        self.launches = launches
 
     def replay(self, tensors: Dict[str, Optional[torch.Tensor]]) -> Dict[str, torch.Tensor]:
         for name, t in tensors.items():
             if t is not None:
                 self.inputs[name].copy_(t)
         self.graph.replay()
-        fa.flash_forward.launches += self.launches
-        rn.rms_norm.launches += self.norm_launches
+        ck.LAUNCHES.update(self.launches)
         return {name: t.clone() for name, t in self.outputs.items()}
 
 
@@ -172,10 +170,10 @@ class DenoiserGraphs:
         inputs = {name: None if t is None else t.clone(memory_format=torch.contiguous_format)
                   for name, t in tensors.items()}
         graph = torch.cuda.CUDAGraph()
-        before = fa.flash_forward.launches, rn.rms_norm.launches
+        before = ck.LAUNCHES.copy()
         with torch.cuda.graph(graph, stream=self._stream(device),
                               capture_error_mode="thread_local"):
             outputs = fn(**inputs)
-        launches = fa.flash_forward.launches - before[0], rn.rms_norm.launches - before[1]
-        fa.flash_forward.launches, rn.rms_norm.launches = before
-        return CapturedCall(graph, inputs, outputs, *launches)
+        launches = ck.LAUNCHES - before
+        ck.LAUNCHES.subtract(launches)
+        return CapturedCall(graph, inputs, outputs, launches)

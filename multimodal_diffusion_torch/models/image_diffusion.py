@@ -104,15 +104,14 @@ class PixelDiT(nn.Module):
         self.head = NoisePredictionHead(c.core.d_model, c.token_dim, hidden_dim=c.width,
                                         num_layers=2, dtype=c.dtype)
 
-    def forward(self, x_t: torch.Tensor, t: torch.Tensor,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    def forward(self, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x_t [B, C, H, W] noisy image, t [B] -> eps_hat [B, C, H, W] (in the
         compute dtype)."""
         c = self.cfg
         tok = patch_image(x_t, c.patch)
         h = self.adapter(tok) + self.pos(tok.shape[1], tok.device)
         h = h + S.timestep_embedding(t, c.width).to(h.dtype)[:, None, :]
-        h = self.core(h, None, use_kernel)
+        h = self.core(h)
         return unpatch_image(self.head(h), c.channels, c.image_size, c.image_size, c.patch)
 
 
@@ -131,10 +130,10 @@ def draw_pixel_randomness(generator: torch.Generator, c: PixelDiTConfig,
 
 
 def pixel_loss(model: PixelDiT, images: torch.Tensor, draws: Dict[str, torch.Tensor],
-               alpha_bar: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+               alpha_bar: torch.Tensor) -> torch.Tensor:
     """mean((eps_hat - eps)^2) in fp32 at x_t = q_sample(images, t, noise)."""
     x_t, eps = S.q_sample(images, draws["t"], alpha_bar, draws["noise"])
-    eps_hat = model(x_t, draws["t"], use_kernel)
+    eps_hat = model(x_t, draws["t"])
     return torch.mean(torch.square(eps_hat.float() - eps.float()))
 
 
@@ -168,7 +167,7 @@ def make_pixel_train_step(model: PixelDiT, optimizer,
 
 def make_ancestral_sampler(model: PixelDiT):
     """The full ancestral DDPM sampler: sample(batch_size, generator=None, *,
-    x_T=None, z=None, use_kernel=None) -> images [B, C, H, W] fp32 in
+    x_T=None, z=None) -> images [B, C, H, W] fp32 in
     [-1, 1]. x_T ~ N(0, 1), then for t = T-1 ... 0 one model forward and
     ``ddpm_step`` with clip_x0=(-1, 1), a final clip. x_T [B, C, H, W] and z
     [T, B, C, H, W] (z[i] is the noise of the i-th step, t = T-1-i) are
@@ -178,8 +177,8 @@ def make_ancestral_sampler(model: PixelDiT):
 
     @torch.inference_mode()
     def sample(batch_size: int, generator: Optional[torch.Generator] = None, *,
-               x_T: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
-               use_kernel: Optional[bool] = None) -> torch.Tensor:
+               x_T: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         dev = next(model.parameters()).device
         model.eval()
         betas = torch.as_tensor(betas_np, device=dev)
@@ -191,7 +190,7 @@ def make_ancestral_sampler(model: PixelDiT):
              else x_T.to(dev, torch.float32))
         for i, t in enumerate(range(c.steps - 1, -1, -1)):
             tb = torch.full((batch_size,), t, dtype=torch.long, device=dev)
-            eps_hat = model(x, tb, use_kernel)
+            eps_hat = model(x, tb)
             zi = (torch.randn(shape, generator=generator, device=dev) if z is None
                   else z[i].to(dev))
             x = S.ddpm_step(x, tb, eps_hat, betas, abar, zi, clip_x0=(-1.0, 1.0))

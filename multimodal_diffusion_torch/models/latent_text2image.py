@@ -135,36 +135,34 @@ class Text2ImageModel(nn.Module):
     def decode_image(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z)
 
-    def encode_text(self, ids: torch.Tensor, use_kernel: Optional[bool] = None):
-        return self.text_encoder(ids, use_kernel)
+    def encode_text(self, ids: torch.Tensor):
+        return self.text_encoder(ids)
 
     # ---------------- denoiser ----------------
 
     def denoise(self, z_t: torch.Tensor, t: torch.Tensor, text_tokens: torch.Tensor,
                 text_pad: Optional[torch.Tensor] = None,
-                keep_text: Optional[torch.Tensor] = None,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+                keep_text: Optional[torch.Tensor] = None) -> torch.Tensor:
         """z_t [B, C, h, w] noisy latent, t [B], text_tokens [B, L, d_text],
         text_pad [B, L] (True = PAD), keep_text [B] 0/1 -> eps_hat [B, C, h, w]."""
         c = self.cfg
         x, mask, n_txt = text_conditioned_tokens(
             self.img_adapter, self.text_proj, self.pos_img, patch_image(z_t, c.patch), t,
             text_tokens, text_pad, keep_text, c.width)
-        h = self.core(x, mask, use_kernel)
+        h = self.core(x, mask)
         eps_tok = self.head(h[:, n_txt:])
         return unpatch_image(eps_tok, c.vae.lat_ch, c.latent_hw, c.latent_hw, c.patch)
 
     def forward(self, images: torch.Tensor, ids: torch.Tensor, t: torch.Tensor,
                 noise: torch.Tensor, alpha_bar: torch.Tensor,
-                keep_text: Optional[torch.Tensor] = None,
-                use_kernel: Optional[bool] = None):
+                keep_text: Optional[torch.Tensor] = None):
         """Training forward: encode -> q_sample -> denoise. Returns (eps_hat,
         eps) in latent space. The VAE decoder takes no part (its parameters
         get no gradient)."""
         z0 = self.encode_image(images)
         z_t, eps = S.q_sample(z0, t, alpha_bar, noise)
-        text_tokens, _ = self.encode_text(ids, use_kernel)
-        eps_hat = self.denoise(z_t, t, text_tokens, ids == PAD_ID, keep_text, use_kernel)
+        text_tokens, _ = self.encode_text(ids)
+        eps_hat = self.denoise(z_t, t, text_tokens, ids == PAD_ID, keep_text)
         return eps_hat, eps
 
 
@@ -188,11 +186,9 @@ def draw_t2i_randomness(generator: torch.Generator, c: Text2ImageConfig, batch: 
 
 
 def t2i_loss(model: Text2ImageModel, images: torch.Tensor, ids: torch.Tensor,
-             draws: Dict[str, torch.Tensor], abar: torch.Tensor,
-             use_kernel: Optional[bool] = None) -> torch.Tensor:
+             draws: Dict[str, torch.Tensor], abar: torch.Tensor) -> torch.Tensor:
     """mean((eps_hat - eps)^2) in fp32 over the step's draws."""
-    eps_hat, eps = model(images, ids, draws["t"], draws["noise"], abar, draws["keep"],
-                         use_kernel)
+    eps_hat, eps = model(images, ids, draws["t"], draws["noise"], abar, draws["keep"])
     return torch.mean(torch.square(eps_hat.float() - eps.float()))
 
 

@@ -60,7 +60,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import mha_reference, multi_head_attention, padding_bias
+from ..ops.attention import (attention_path, forced_path, mha_reference, multi_head_attention,
+                             padding_bias)
 from ..ops.quant import Int8Weight, int8_linear
 from ..ops.ring_attention import ring_attention_local
 from ..ops.rms_norm import rms_norm, rms_norm_reference
@@ -321,8 +322,7 @@ class Attention(nn.Module):
         self.resid_drop = Dropout(resid_dropout)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
-                use_kernel: Optional[bool] = None, ctx_offset: Optional[int] = None
-                ) -> torch.Tensor:
+                ctx_offset: Optional[int] = None) -> torch.Tensor:
         """x [B, N, d]. Under a context layout the core passes this rank's
         token shard with `ctx_offset`, its first token's global position,
         and the whole sequence's key_padding_mask; a direct call with the
@@ -333,7 +333,7 @@ class Attention(nn.Module):
         if L.ctx_n > 1 and ctx_offset is None:
             if N % L.ctx_n == 0:
                 shard = comm.scatter_to_group(x, L.ctx_group, 1)
-                out = self(shard, key_padding_mask, use_kernel, L.ctx_i * (N // L.ctx_n))
+                out = self(shard, key_padding_mask, L.ctx_i * (N // L.ctx_n))
                 return comm.gather_from_group(out, L.ctx_group, 1)
             warnings.warn(f"context parallelism configured (size {L.ctx_n}) but sequence "
                           f"length {N} is not divisible — falling back to DENSE attention "
@@ -360,8 +360,7 @@ class Attention(nn.Module):
             bias = None if key_padding_mask is None else padding_bias(key_padding_mask)
             out = mha_reference(q, k, v, bias, probs_dropout=self.attn_drop)
         else:
-            out = multi_head_attention(q, k, v, key_padding_mask=key_padding_mask,
-                                       use_kernel=use_kernel)
+            out = multi_head_attention(q, k, v, key_padding_mask=key_padding_mask)
         out = out.transpose(1, 2).reshape(B, N, -1)
         return self.resid_drop(self.out(out))
 
@@ -404,9 +403,8 @@ class Block(nn.Module):
         self.mlp = MLP(d, mlp_ratio, gelu_exact, dtype, dropout, quant, layout)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
-                use_kernel: Optional[bool] = None, ctx_offset: Optional[int] = None
-                ) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), key_padding_mask, use_kernel, ctx_offset)
+                ctx_offset: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), key_padding_mask, ctx_offset)
         return x + self.mlp(self.norm2(x))
 
 
@@ -453,27 +451,31 @@ class MMDiTConfig:
 
 
 def remat_block(blk: nn.Module, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
-                use_kernel: Optional[bool], ctx_offset: Optional[int] = None) -> torch.Tensor:
+                ctx_offset: Optional[int] = None) -> torch.Tensor:
     """blk(x, ...) under non-reentrant activation checkpointing. The state of
     each generator its dropouts draw from is saved now; the recompute in the
     backward pass starts from it (the same masks as this forward) and puts
     back afterwards the state it found. torch's own preserve_rng_state only
-    covers the global generators, which the port never draws from."""
+    covers the global generators, which the port never draws from. The
+    recompute takes the attention path of this forward, also when the
+    backward runs after an ``attention_path`` scope has closed."""
     gens = list({id(m.generator): m.generator for m in blk.modules()
                  if isinstance(m, Dropout) and m.rate > 0.0 and m.generator is not None
                  }.values())
     saved = [g.get_state() for g in gens]
+    path = forced_path()
     calls = [0]
 
     def run(x, key_padding_mask):
         calls[0] += 1
         if calls[0] == 1:  # the forward pass itself
-            return blk(x, key_padding_mask, use_kernel, ctx_offset)
+            return blk(x, key_padding_mask, ctx_offset)
         found = [g.get_state() for g in gens]
         for g, s in zip(gens, saved):
             g.set_state(s)
         try:
-            return blk(x, key_padding_mask, use_kernel, ctx_offset)
+            with attention_path(path):
+                return blk(x, key_padding_mask, ctx_offset)
         finally:
             for g, s in zip(gens, found):
                 g.set_state(s)
@@ -507,8 +509,8 @@ class MMDiT(nn.Module):
             split_dropout([blk.attn.attn_drop], 1, L.tp_n, L.tp_i)
             split_dropout([blk.mlp.drop1], 2, L.tp_n, L.tp_i)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         cfg, L = self.cfg, self.layout
         if x.shape[-1] != cfg.d_model:
             raise ValueError(f"expected width {cfg.d_model}, got {x.shape[-1]}")
@@ -531,7 +533,7 @@ class MMDiT(nn.Module):
                     "deterministically inside the schedule)")
             from ..parallel.pipeline import pipeline_apply, stage_blocks
 
-            stage_fn, params = stage_blocks(self, L.mesh, L.pipe_axis, use_kernel)
+            stage_fn, params = stage_blocks(self, L.mesh, L.pipe_axis)
             x = pipeline_apply(stage_fn, params, x, L.mesh, L.pipe_axis,
                                L.pipe_microbatches, key_padding_mask)
         else:
@@ -542,9 +544,9 @@ class MMDiT(nn.Module):
                 x = comm.scatter_to_group(x, L.ctx_group, 1)
             for blk in self.blocks:
                 if remat:
-                    x = remat_block(blk, x, key_padding_mask, use_kernel, offset)
+                    x = remat_block(blk, x, key_padding_mask, offset)
                 else:
-                    x = blk(x, key_padding_mask, use_kernel, offset)
+                    x = blk(x, key_padding_mask, offset)
             if L.ctx_n > 1:
                 x = comm.gather_from_group(x, L.ctx_group, 1)
         if pad_n:

@@ -71,13 +71,12 @@ class Text2AudioModel(nn.Module):
         self.head = NoisePredictionHead(c.core.d_model, c.token_dim, hidden_dim=c.width,
                                         num_layers=2, dtype=c.dtype)
 
-    def encode_text(self, ids: torch.Tensor, use_kernel: Optional[bool] = None):
-        return self.text_encoder(ids, use_kernel)
+    def encode_text(self, ids: torch.Tensor):
+        return self.text_encoder(ids)
 
     def denoise(self, m_t: torch.Tensor, t: torch.Tensor, text_tokens: torch.Tensor,
                 text_pad: Optional[torch.Tensor] = None,
-                keep_text: Optional[torch.Tensor] = None,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+                keep_text: Optional[torch.Tensor] = None) -> torch.Tensor:
         """m_t: [B, 1, n_mels, frames] noisy normalized mel -> eps_hat. The
         patch is patch_f square over (mels, time), as the JAX model (which
         sizes its position table and head by patch_t)."""
@@ -85,17 +84,17 @@ class Text2AudioModel(nn.Module):
         x, mask, n_txt = text_conditioned_tokens(
             self.mel_adapter, self.text_proj, self.pos, patch_image(m_t, c.patch_f), t,
             text_tokens, text_pad, keep_text, c.width)
-        out = self.core(x, mask, use_kernel)
+        out = self.core(x, mask)
         eps_tok = self.head(out[:, n_txt:])
         return unpatch_image(eps_tok, 1, c.n_mels, c.frames, c.patch_f)
 
     def forward(self, mels: torch.Tensor, ids: torch.Tensor, t: torch.Tensor,
                 noise: torch.Tensor, alpha_bar: torch.Tensor,
-                keep_text: Optional[torch.Tensor] = None, use_kernel: Optional[bool] = None):
+                keep_text: Optional[torch.Tensor] = None):
         """Training forward on normalized mels [B, 1, M, F]: (eps_hat, eps)."""
         m_t, eps = S.q_sample(mels, t, alpha_bar, noise)
-        text_tokens, _ = self.encode_text(ids, use_kernel)
-        eps_hat = self.denoise(m_t, t, text_tokens, ids == PAD_ID, keep_text, use_kernel)
+        text_tokens, _ = self.encode_text(ids)
+        eps_hat = self.denoise(m_t, t, text_tokens, ids == PAD_ID, keep_text)
         return eps_hat, eps
 
 

@@ -10,7 +10,7 @@ not padding: forward(ids [B, L]) -> (tokens [B, L, d], pooled [B, d]).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,15 +63,14 @@ class TextEncoder(nn.Module):
         self.pos = nn.Parameter(torch.zeros(cfg.max_len, cfg.width))
         self.core = MMDiT(cfg.core)
 
-    def forward(self, ids: torch.Tensor, use_kernel: Optional[bool] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """ids: [B, L] int -> (token_embs [B, L, d], pooled [B, d]); pooled is
         the mean over the non-pad positions (fp32 sum, at least one position
         counted)."""
         emb = self.token_embed(ids)
         h = emb + self.pos[: ids.shape[1]].to(emb.dtype)[None]
         pad_mask = ids == PAD_ID  # True = PAD
-        h = self.core(h, pad_mask, use_kernel)
+        h = self.core(h, pad_mask)
         keep = (~pad_mask).to(torch.float32)[..., None]
         pooled = (h.float() * keep).sum(dim=1) / keep.sum(dim=1).clamp(min=1.0)
         return h, pooled.to(h.dtype)

@@ -8,13 +8,14 @@ Two backends behind one function:
     masking keys in-kernel.
 
 ``multi_head_attention`` sends CUDA tensors to the kernels and CPU tensors
-to the dense path, unless the caller chooses with ``use_kernel``. Both are
-differentiable.
+to the dense path. Both are differentiable. ``attention_path`` forces one of
+them for every call inside its scope, wherever in a model the call is.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -49,22 +50,40 @@ def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
     return bias.masked_fill(key_padding_mask, NEG_SENTINEL)[:, None, None, :]
 
 
-def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         key_padding_mask: Optional[torch.Tensor] = None,
-                         use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Attention over [B, H, N, Dh] with an optional [B, N] key-padding mask
-    (True = PAD).
+# module state, not thread-local: autograd runs a CUDA backward (and with it
+# an activation-checkpointing recompute) on its own device thread
+_forced: Optional[str] = None
 
-    ``use_kernel=None`` picks by device: the CUDA kernels for CUDA tensors,
-    the dense path for CPU tensors; a CUDA tensor takes the dense path only
-    when the caller passes ``use_kernel=False``, and a CPU tensor with
-    ``use_kernel=True`` runs the kernels' plain versions, forward and
-    backward. A batch row whose keys are all masked returns exact zeros on
-    both paths.
+
+@contextlib.contextmanager
+def attention_path(path: Optional[str]) -> Iterator[None]:
+    """Force ``multi_head_attention``'s path inside the scope: "kernel" (the
+    kernels, or their plain versions for CPU tensors, forward and backward),
+    "dense", or None (by device). Tests and on-card checks compare the two
+    paths with it; nothing in the program sets it."""
+    global _forced
+    if path not in (None, "kernel", "dense"):
+        raise ValueError(f"attention path must be 'kernel', 'dense' or None, got {path!r}")
+    outer, _forced = _forced, path
+    try:
+        yield
+    finally:
+        _forced = outer
+
+
+def forced_path() -> Optional[str]:
+    """The path ``attention_path`` forces now, or None."""
+    return _forced
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over [B, H, N, Dh] with an optional [B, N] key-padding mask
+    (True = PAD): the CUDA kernels for CUDA tensors, the dense path for CPU
+    tensors, unless ``attention_path`` forces one. A batch row whose keys are
+    all masked returns exact zeros on both paths.
     """
-    if use_kernel is None:
-        use_kernel = q.is_cuda
-    if use_kernel:
+    if (_forced or ("kernel" if q.is_cuda else "dense")) == "kernel":
         return flash_attention(q, k, v, key_padding_mask)
     if key_padding_mask is None:
         return mha_reference(q, k, v)

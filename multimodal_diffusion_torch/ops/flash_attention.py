@@ -7,38 +7,29 @@ differentiable ``flash_attention`` over them.
   * ``csrc/flash_bwd.cu`` replaces ``_flash_bwd_dkdv_kernel`` and
     ``_flash_bwd_dq_kernel`` (``flash_backward``, two launches per call).
 
-Each source is built with ``nvcc`` for ``sm_90a`` at first use into
-``_build/`` (listed in .gitignore), keyed by the content hash of the source
-and of every header beside it, and bound with ctypes. The bf16 kernels,
-forward and backward, run on the tensor cores (``wgmma``) and copy 16 bytes
-at a time, so their operands must be 16-byte aligned
-(``misaligned_operands``); fp32 keeps FMA kernels, which take any alignment.
-A wrapper runs the plain version only for a tensor on the CPU; for a CUDA
-tensor it launches its kernel or raises.
+Each source is built, loaded and counted through ``cuda_kernels.py`` (nvcc
+at first use; ``LAUNCHES["flash_fwd"]``, ``["flash_bwd_dkdv"]`` and
+``["flash_bwd_dq"]``). The bf16 kernels, forward and backward, run on the
+tensor cores (``wgmma``) and copy 16 bytes at a time, so their operands must
+be 16-byte aligned (``cuda_kernels.misaligned_operands``); fp32 keeps FMA
+kernels, which take any alignment. A wrapper runs the plain version only for
+a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from . import cuda_kernels as ck
 
 NEG_SENTINEL = -1e30
 # the plain version walks K/V in the TPU kernel's 128-key tiles
 REFERENCE_BLOCK_K = 128
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_PKG = Path(__file__).resolve().parents[1]
-SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("flash_fwd", "flash_bwd")}
-BUILD_DIR = _PKG / "_build"
 
 
 def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,71 +69,24 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, m + torch.log(l_safe)
 
 
-def _nvcc() -> Optional[str]:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    return str(default) if default.exists() else None
-
-
-def source_tag(source: Path) -> str:
-    """Content hash of a .cu file and of every header in its directory (any
-    of which it may include): the key of its built library."""
-    digest = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")) + sorted(source.parent.glob("*.h")):
-        digest.update(header.name.encode())
-        digest.update(header.read_bytes())
-    return digest.hexdigest()[:16]
-
-
-def build(name: str = "flash_fwd", source: Optional[Path] = None) -> Path:
-    """Compile csrc/<name>.cu (or `source`, another kernel of csrc/) for
-    sm_90a into BUILD_DIR (once per content of the source and the headers
-    beside it) and return the shared library's path. The compiler's register
-    and shared-memory report is kept beside it as a .log. Safe to call for
-    several sources at once from threads."""
-    source = SOURCES[name] if source is None else source
-    lib = BUILD_DIR / f"lib{name}_{source_tag(source)}.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            f"nvcc not found: the CUDA kernel {source.name} cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-I", str(source.parent), "-o", str(tmp), str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    lib.with_suffix(".log").write_text(res.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str = "flash_fwd") -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build(name)))
+def _declare_forward(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "flash_fwd":
-        lib.flash_fwd.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
-                                  + [ctypes.c_float, ptr])
-        lib.flash_fwd.restype = i32
-        lib.flash_fwd_occupancy.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
-        lib.flash_fwd_occupancy.restype = i32
-    else:
-        # q, k, v, dout, lse, delta, valid, outputs..., device, B, H, N, D,
-        # dtype, strides (int64[21]), scale, stream
-        strides = ctypes.POINTER(i64)
-        lib.flash_bwd_dkdv.argtypes = [ptr] * 9 + [i32] * 6 + [strides, ctypes.c_float, ptr]
-        lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [strides, ctypes.c_float, ptr]
-        lib.flash_bwd_dkdv.restype = lib.flash_bwd_dq.restype = i32
-        lib.flash_bwd_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
-        lib.flash_bwd_occupancy.restype = i32
-    return lib
+    lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 12 + [ctypes.c_float, ptr]
+    lib.flash_fwd.restype = i32
+    lib.flash_fwd_occupancy.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flash_fwd_occupancy.restype = i32
+
+
+def _declare_backward(lib: ctypes.CDLL) -> None:
+    # q, k, v, dout, lse, delta, valid, outputs..., device, B, H, N, D,
+    # dtype, strides (int64[21]), scale, stream
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_bwd_dkdv.argtypes = [ptr] * 9 + [i32] * 6 + [strides, ctypes.c_float, ptr]
+    lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [strides, ctypes.c_float, ptr]
+    lib.flash_bwd_dkdv.restype = lib.flash_bwd_dq.restype = i32
+    lib.flash_bwd_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flash_bwd_occupancy.restype = i32
 
 
 def _occupancy(fn, *args) -> dict:
@@ -157,14 +101,14 @@ def forward_occupancy() -> dict:
     """Of the bf16 forward kernel at each head dim, on the current card: the
     dynamic shared memory of one block and the blocks an SM holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 128 threads a block)."""
-    fn = _library("flash_fwd").flash_fwd_occupancy
+    fn = ck.library("flash_fwd", _declare_forward).flash_fwd_occupancy
     return {f"flash_fwd_bf16_dh{head_dim}": _occupancy(fn, head_dim)
             for head_dim in SUPPORTED_HEAD_DIMS}
 
 
 def backward_occupancy() -> dict:
     """The same of each bf16 backward kernel."""
-    fn = _library("flash_bwd").flash_bwd_occupancy
+    fn = ck.library("flash_bwd", _declare_backward).flash_bwd_occupancy
     return {f"flash_bwd_{kernel}_bf16_dh{head_dim}": _occupancy(fn, int(kernel == "dq"), head_dim)
             for kernel in ("dkdv", "dq") for head_dim in SUPPORTED_HEAD_DIMS}
 
@@ -203,29 +147,6 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{who}: valid must be contiguous on q's device")
 
 
-def misaligned_operands(**operands: torch.Tensor) -> list:
-    """Names of the [B, H, N, Dh] operands that the bf16 kernels cannot copy
-    16 bytes at a time: a base address or a batch, head or row
-    stride (of a dim longer than 1) that is not a multiple of 16 bytes. Reads
-    only addresses and strides, so it takes tensors on any device."""
-    bad = []
-    for name, t in operands.items():
-        step = 16 // t.element_size()
-        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(s % step for s in strides):
-            bad.append(name)
-    return bad
-
-
-def require_aligned(who: str, **operands: torch.Tensor) -> None:
-    """Raise for operands that ``misaligned_operands`` names: there is no
-    slower path behind the bf16 kernels."""
-    bad = misaligned_operands(**operands)
-    if bad:
-        raise ValueError(f"{who}: {bad} not 16-byte aligned (base address and batch, "
-                         f"head and row strides)")
-
-
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,17 +154,17 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take ``flash_forward_reference``. CUDA tensors launch the
     kernel on the current stream, or raise (no fallback): bf16 operands must
-    be 16-byte aligned (``misaligned_operands``). ``out`` is a [B, H, N, Dh]
-    view of a [B, N, H, Dh] buffer, so merging the heads afterwards costs no
-    copy."""
+    be 16-byte aligned (``cuda_kernels.misaligned_operands``). ``out`` is a
+    [B, H, N, Dh] view of a [B, N, H, Dh] buffer, so merging the heads
+    afterwards costs no copy."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, valid)
     _check_inputs(q, k, v, valid)
     B, H, N, Dh = q.shape
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     if q.dtype == torch.bfloat16:
-        require_aligned("flash_forward", q=q, k=k, v=v, out=out)
-    lib = _library("flash_fwd")
+        ck.require_aligned("flash_forward", q=q, k=k, v=v, out=out)
+    lib = ck.library("flash_fwd", _declare_forward)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = lib.flash_fwd(
@@ -254,13 +175,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         1.0 / (Dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
-    flash_forward.launches += 1
+    ck.LAUNCHES["flash_fwd"] += 1
     return out, lse
-
-
-# kernel executions: a launch recorded into a captured graph is taken back,
-# and the graph adds it again at each replay (models/graphed.py)
-flash_forward.launches = 0
 
 
 def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -322,7 +238,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_backward_reference(q, k, v, out, lse, dout, valid, delta)
     _check_inputs(q, k, v, valid, "flash_backward", dout=dout)
     if q.dtype == torch.bfloat16:
-        require_aligned("flash_backward", q=q, k=k, v=v, dout=dout)
+        ck.require_aligned("flash_backward", q=q, k=k, v=v, dout=dout)
     B, H, N, Dh = q.shape
     if delta is None:
         delta = (dout.float() * out.float()).sum(dim=-1)
@@ -343,31 +259,26 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor, v: tor
                            dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                            valid: Optional[torch.Tensor], grads: torch.Tensor) -> None:
     """Launch one backward kernel, "dkdv" or "dq", on the current stream and
-    count the launch (``flash_backward.dkdv_launches``/``dq_launches``). It
+    count the launch (``LAUNCHES["flash_bwd_dkdv"]`` / ``["flash_bwd_dq"]``). It
     writes its grads into `grads` [B, N, 3, H, Dh] (q, k, v along axis 2).
     The operands are those ``flash_backward`` checked; chip_smoke.py calls
     this directly to time each kernel alone."""
     B, H, N, Dh = q.shape
     views = [grads[:, :, i].transpose(1, 2) for i in range(3)]
     if q.dtype == torch.bfloat16:
-        require_aligned("flash_backward", dq=views[0], dk=views[1], dv=views[2])
+        ck.require_aligned("flash_backward", dq=views[0], dk=views[1], dv=views[2])
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, dout, *views) for s in t.stride()[:3]))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), None if valid is None else valid.data_ptr())
     outs = ((views[1].data_ptr(), views[2].data_ptr()) if kernel == "dkdv"
             else (views[0].data_ptr(),))
-    fn = getattr(_library("flash_bwd"), f"flash_bwd_{kernel}")
+    fn = getattr(ck.library("flash_bwd", _declare_backward), f"flash_bwd_{kernel}")
     err = fn(*ins, *outs, q.device.index or 0, B, H, N, Dh, _DTYPE_CODE[q.dtype], strides,
              1.0 / (Dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_{kernel} launch failed with CUDA error {err}")
-    name = f"{kernel}_launches"
-    setattr(flash_backward, name, getattr(flash_backward, name) + 1)
-
-
-flash_backward.dkdv_launches = 0
-flash_backward.dq_launches = 0
+    ck.LAUNCHES[f"flash_bwd_{kernel}"] += 1
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -386,7 +297,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, valid = ctx.saved_tensors
         # e.g. an expanded (stride 0) gradient, or a view off the 16-byte grid
         if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
-                                    and misaligned_operands(dout=dout)):
+                                    and ck.misaligned_operands(dout=dout)):
             dout = dout.contiguous()
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout, valid)
         return dq, dk, dv, None

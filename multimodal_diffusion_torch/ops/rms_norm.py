@@ -7,23 +7,20 @@ between them by device.
 The kernel replaces no TPU kernel: the JAX package leaves its RMSNorm to XLA,
 which fuses it. It is one pass over each row in place of the ten elementwise
 launches the formula takes in eager PyTorch (the source has the design and
-its bound). It is built like the flash kernels (``flash_attention.build``:
-nvcc for ``sm_90a`` into ``_build/``, keyed by content) and bound with
-ctypes at first use. A wrapper runs the plain version only for a tensor on
-the CPU; for any other tensor it launches the kernel or raises.
+its bound). It is built, loaded and counted through ``cuda_kernels.py``
+(nvcc at first use; ``LAUNCHES["rms_norm"]``). A wrapper runs the plain
+version only for a tensor on the CPU; for any other tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-from pathlib import Path
 
 import torch
 
-from . import flash_attention as fa
+from . import cuda_kernels as ck
 
-SOURCE = fa.SOURCES["flash_fwd"].parent / "rms_norm.cu"
 _X_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _W_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VEC = 8  # elements the kernel loads at a time: d is a multiple of it
@@ -40,21 +37,13 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return (weight.float() * xf / (norm + eps)).to(out_dtype)
 
 
-def build() -> Path:
-    """Compile csrc/rms_norm.cu into the build directory (once per content)."""
-    return fa.build("rms_norm", SOURCE)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # x, weight, out, device, B, N, d, batch and row strides, the three
     # dtype codes, eps, stream
     lib.rms_norm.argtypes = [ptr, ptr, ptr, i32, i64, i64, i32, i64, i64, i32, i32, i32,
                              ctypes.c_float, ptr]
     lib.rms_norm.restype = i32
-    return lib
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, out_dtype: torch.dtype) -> None:
@@ -77,11 +66,7 @@ def _check(x: torch.Tensor, weight: torch.Tensor, out_dtype: torch.dtype) -> Non
     if x.stride(-1) != 1:
         raise ValueError("rms_norm: x needs unit stride along d")
     # the kernel reads 16 bytes at a time from x and the weight
-    step = 16 // x.element_size()
-    strides = [s for s, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1]
-    if x.data_ptr() % 16 or weight.data_ptr() % 16 or any(s % step for s in strides):
-        raise ValueError("rms_norm: x and weight must be 16-byte aligned (base addresses, "
-                         "and x's batch and row strides)")
+    ck.require_aligned("rms_norm", x=x, weight=weight)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -98,16 +83,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     _check(x, weight, out_dtype)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     B, N, d = x.shape
-    err = _library().rms_norm(
+    err = ck.library("rms_norm", _declare).rms_norm(
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), x.device.index or 0, B, N, d,
         x.stride(0), x.stride(1), _X_CODE[x.dtype], _W_CODE[weight.dtype],
         _X_CODE[out_dtype], eps, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rms_norm launch failed with CUDA error {err}")
-    rms_norm.launches += 1
+    ck.LAUNCHES["rms_norm"] += 1
     return out
-
-
-# kernel executions: a launch recorded into a captured graph is taken back,
-# and the graph adds it again at each replay (models/graphed.py)
-rms_norm.launches = 0

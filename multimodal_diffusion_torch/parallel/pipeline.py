@@ -134,8 +134,7 @@ def pipeline_apply(stage_fn: Callable[[torch.Tensor, Optional[torch.Tensor]], to
     return sched.forward(x, key_padding_mask, keep_graph=False)[0]
 
 
-def stage_blocks(core, mesh, axis: str, use_kernel: Optional[bool] = None
-                 ) -> Tuple[Callable, List[torch.Tensor]]:
+def stage_blocks(core, mesh, axis: str) -> Tuple[Callable, List[torch.Tensor]]:
     """This rank's stage of an MMDiT core: blocks [s k, (s + 1) k) with
     k = n_layers / n_stages, as (stage_fn, its parameters)."""
     n_stages = mesh.size(axis)
@@ -148,7 +147,7 @@ def stage_blocks(core, mesh, axis: str, use_kernel: Optional[bool] = None
 
     def stage_fn(h, mask):
         for blk in blocks:
-            h = blk(h, mask, use_kernel)
+            h = blk(h, mask)
         return h
 
     return stage_fn, [p for blk in blocks for p in blk.parameters()]

@@ -301,7 +301,6 @@ class StepConfig:
     recon_every: int = 1  # the reconstruction decode runs on every recon_every-th step
     ema_decay: float = 0.999
     use_ema: bool = True
-    use_kernel: Optional[bool] = None
 
 
 def draw_step_randomness(generator: torch.Generator, sc: StepConfig) -> Dict[str, torch.Tensor]:
@@ -362,8 +361,7 @@ def train_loss(model: AVDiffusionModel, sc: StepConfig, abar_v: torch.Tensor,
     # with it under CFG (the model ignores keep_m when the stream is off)
     keep_m = (1.0 - w_v) * keep_nontarget
     out = model(batch["video"], batch["audio"], t_v, t_a, draws["noise_v"], draws["noise_a"],
-                abar_v, abar_a, keep_v, keep_a, keep_m=keep_m, with_recon=with_recon,
-                use_kernel=sc.use_kernel)
+                abar_v, abar_a, keep_v, keep_a, keep_m=keep_m, with_recon=with_recon)
     loss_main = mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
                                  out["eps_true_a"], target_is_video,
                                  batch.get("has_video"), batch.get("has_audio"), group=group)
@@ -501,8 +499,7 @@ def build_eval_step(sc: StepConfig, abar_v: torch.Tensor, abar_a: torch.Tensor, 
             d = shard_batch(mesh, draw_step_randomness(generator, sc), B)
             def losses_of(keep_m, target_is_video):
                 out = model(b["video"], b["audio"], d["t_v"], d["t_a"], d["noise_v"],
-                            d["noise_a"], abar_v, abar_a, keep_m=keep_m,
-                            use_kernel=sc.use_kernel)
+                            d["noise_a"], abar_v, abar_a, keep_m=keep_m)
                 return [mse_targets_only(out["eps_v"], out["eps_a"], out["eps_true_v"],
                                          out["eps_true_a"], w, b.get("has_video"),
                                          b.get("has_audio"), group=data_group)
@@ -561,12 +558,10 @@ def _abar(d: Dict, device: torch.device) -> torch.Tensor:
 
 
 def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
-                   seed: Optional[int] = None, use_kernel: Optional[bool] = None,
-                   mesh=None) -> TrainerBundle:
+                   seed: Optional[int] = None, mesh=None) -> TrainerBundle:
     """The model (seeded random init), optimizer, EMA shadow and generator on
     one device (CUDA unless `device="cpu"`; raises when CUDA is asked for and
-    absent), and the step functions. `use_kernel` picks the attention
-    backend (None: the kernels on CUDA, dense attention on the CPU).
+    absent), and the step functions.
 
     `mesh` (default ``make_mesh_from_config(cfg)`` over the process group's
     ranks, or one rank) lays the step out over ranks, as the JAX package's
@@ -648,7 +643,7 @@ def create_trainer(cfg: Dict, device="cuda", batch_size: Optional[int] = None,
         video_time_chunks=shapes["z_video"][2] // model.cfg.tube[0],
         mouth_time_chunks=shapes["video"][2] // model.cfg.mouth_tube[0],
         recon_weight=float(t_cfg.get("recon_loss_weight", 0.0)), recon_every=recon_every,
-        ema_decay=float(ema_cfg.get("decay", 0.999)), use_ema=use_ema, use_kernel=use_kernel)
+        ema_decay=float(ema_cfg.get("decay", 0.999)), use_ema=use_ema)
     state = TrainState(step=0, model=model, optimizer=optimizer, ema=ema, generator=generator,
                        mesh=mesh)
     return TrainerBundle(model=model, state=state,

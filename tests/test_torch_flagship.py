@@ -27,6 +27,7 @@ from _torch_parity import jax_model_and_params, shrunk_flagship_cfg, t2n, torch_
 from multimodal_diffusion_torch.infer.ddim import sampler_from_config as t_sampler
 from multimodal_diffusion_torch.infer.sample_clip import sample_one_direction
 from multimodal_diffusion_torch.ops import schedule as TS
+from multimodal_diffusion_torch.ops.attention import attention_path
 from multimodal_diffusion_torch.train import trainer as TT
 from multimodal_diffusion_torch.utils.convert import jax_params_to_state_dict
 from multimodal_diffusion_tpu.infer.ddim import sampler_from_config as j_sampler
@@ -314,11 +315,10 @@ def _torch_draws(draws):
     return {k: T(v) for k, v in draws.items()}
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("kernel", [True, False])
 @pytest.mark.parametrize("sync_source", ["video", "mouth"])
 @pytest.mark.parametrize("with_recon", [True, False])
-def test_flagship_train_loss_and_every_grad_match_jax(parity, with_recon, sync_source,
-                                                      use_kernel):
+def test_flagship_train_loss_and_every_grad_match_jax(parity, with_recon, sync_source, kernel):
     """The audio-target loss (the stream on for sample 1, CFG-dropped for
     sample 0) within 1e-5 relative and every parameter's grad within 2e-4 of
     its largest magnitude, through the kernels' plain versions and through
@@ -327,11 +327,13 @@ def test_flagship_train_loss_and_every_grad_match_jax(parity, with_recon, sync_s
     cfg, _, params, s, batch, draws, abar = parity
     j_loss, j_grads = _jax_loss_and_grads(parity, with_recon, sync_source)
     tm = torch_model(cfg, params)
-    sc = _step_config(cfg, s, sync_source=sync_source, use_kernel=use_kernel)
+    sc = _step_config(cfg, s, sync_source=sync_source)
     ab = T(abar)
-    loss, parts = TT.train_loss(tm, sc, ab, ab, TT.batch_to_device(batch, torch.device("cpu")),
-                                0.0, _torch_draws(draws), with_recon)
-    loss.backward()
+    with attention_path("kernel" if kernel else "dense"):
+        loss, parts = TT.train_loss(tm, sc, ab, ab,
+                                    TT.batch_to_device(batch, torch.device("cpu")), 0.0,
+                                    _torch_draws(draws), with_recon)
+        loss.backward()
     np.testing.assert_allclose(float(loss.detach()), j_loss, rtol=1e-5)
     parts = {k: float(v.detach()) for k, v in parts.items()}
     assert (parts["loss_recon"] > 0.0) == with_recon
@@ -478,10 +480,11 @@ def test_run_training_logs_the_interval_mean_of_loss_recon():
     runs = {}
     for log_every in (1, 2):
         cfg["training"]["log_every"] = log_every
-        bundle = TT.create_trainer(cfg, device="cpu", batch_size=B, use_kernel=True)
         logs = []
-        TT.run_training(cfg, bundle, batches(bundle.latent_shapes), max_steps=4,
-                        log_fn=lambda step, m: logs.append(m))
+        with attention_path("kernel"):
+            bundle = TT.create_trainer(cfg, device="cpu", batch_size=B)
+            TT.run_training(cfg, bundle, batches(bundle.latent_shapes), max_steps=4,
+                            log_fn=lambda step, m: logs.append(m))
         runs[log_every] = [m["loss_recon"] for m in logs]
         assert all(np.isfinite([m["loss"] for m in logs]))
     each, mean = runs[1], runs[2]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from multimodal_diffusion_torch.ops import attention as t_att
+from multimodal_diffusion_torch.ops import cuda_kernels as ck
 from multimodal_diffusion_torch.ops import flash_attention as t_fa
 from multimodal_diffusion_tpu.ops import attention as j_att
 from multimodal_diffusion_tpu.ops.flash_attention import _flash_forward
@@ -109,8 +110,8 @@ def test_alignment_check_takes_the_forward_operands(Dh):
     buffer flash_forward allocates: 16-byte aligned at every head dim."""
     q, k, v = _fused_qkv_views(16, 133, 8, Dh, torch.bfloat16)
     out = torch.empty((16, 133, 8, Dh), dtype=torch.bfloat16).transpose(1, 2)
-    assert t_fa.misaligned_operands(q=q, k=k, v=v, out=out) == []
-    t_fa.require_aligned("flash_forward", q=q, k=k, v=v, out=out)
+    assert ck.misaligned_operands(q=q, k=k, v=v, out=out) == []
+    ck.require_aligned("flash_forward", q=q, k=k, v=v, out=out)
 
 
 @pytest.mark.parametrize("operand", ["q", "k", "v", "out"])
@@ -121,26 +122,26 @@ def test_alignment_check_refuses_a_misaligned_forward_operand(operand):
     off = torch.zeros((2, 2, 40, 72), dtype=torch.bfloat16)[..., 4:68]
     assert off.stride(-1) == 1 and off.data_ptr() % 16 == 8
     operands = {name: (off if name == operand else ok) for name in ("q", "k", "v", "out")}
-    assert t_fa.misaligned_operands(**operands) == [operand]
+    assert ck.misaligned_operands(**operands) == [operand]
     with pytest.raises(ValueError, match=rf"flash_forward: \['{operand}'\] not 16-byte aligned"):
-        t_fa.require_aligned("flash_forward", **operands)
-    assert t_fa.misaligned_operands(
+        ck.require_aligned("flash_forward", **operands)
+    assert ck.misaligned_operands(
         **{operand: torch.zeros((2, 2, 40, 72))[..., 4:68]}) == []
 
 
-@pytest.mark.parametrize("name", sorted(t_fa.SOURCES))
+@pytest.mark.parametrize("name", ["flash_bwd", "flash_fwd"])
 def test_build_tag_of_each_source_follows_the_shared_header(name, tmp_path):
     """flash_fwd.cu and flash_bwd.cu both include csrc/flash_common.cuh, and
     the key of each built library changes with that header alone."""
-    source = t_fa.SOURCES[name]
+    source = ck.SOURCES[name]
     assert '#include "flash_common.cuh"' in source.read_text()
     copy = tmp_path / source.name
     copy.write_text(source.read_text())
     header = tmp_path / "flash_common.cuh"
     header.write_text((source.parent / "flash_common.cuh").read_text())
-    tag = t_fa.source_tag(copy)
+    tag = ck.source_tag(copy)
     header.write_text(header.read_text() + "// changed\n")
-    assert t_fa.source_tag(copy) != tag
+    assert ck.source_tag(copy) != tag
 
 
 def test_reference_bf16_matches_pallas_interpret():
@@ -159,21 +160,22 @@ def test_reference_bf16_matches_pallas_interpret():
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("use_kernel", [None, False, True])
+@pytest.mark.parametrize("kernel", [None, False, True])
 @pytest.mark.parametrize("mask", MASKS)
-def test_multi_head_attention_matches_jax(mask, use_kernel):
-    """use_kernel=True on CPU tensors runs the kernel's plain version; None
-    and False run the dense path — all three agree with the JAX dispatch."""
+def test_multi_head_attention_matches_jax(mask, kernel):
+    """The kernel path forced on CPU tensors runs the kernel's plain
+    version; no override and the dense path forced run the dense path — all
+    three agree with the JAX dispatch."""
     shape = (2, 4, 133, 32)
     q, k, v = _qkv(shape, seed=3)
     kpad = _key_padding(2, 133, mask, seed=3)
     j = j_att.multi_head_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         key_padding_mask=None if kpad is None else jnp.asarray(kpad))
-    t = t_att.multi_head_attention(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        key_padding_mask=None if kpad is None else torch.from_numpy(kpad),
-        use_kernel=use_kernel)
+    with t_att.attention_path({None: None, False: "dense", True: "kernel"}[kernel]):
+        t = t_att.multi_head_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            key_padding_mask=None if kpad is None else torch.from_numpy(kpad))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-5, atol=2e-5)
     if mask == "row_all_masked":
         assert np.all(t[0].numpy() == 0.0)
@@ -181,7 +183,7 @@ def test_multi_head_attention_matches_jax(mask, use_kernel):
 
 def test_cpu_tensors_never_touch_the_kernel():
     q, k, v = (torch.from_numpy(x) for x in _qkv((1, 1, 16, 32), seed=0))
-    with mock.patch.object(t_fa, "_library", side_effect=AssertionError("kernel path")):
+    with mock.patch.object(ck, "library", side_effect=AssertionError("kernel path")):
         out, lse = t_fa.flash_forward(q, k, v)
     assert out.shape == q.shape and lse.shape == (1, 1, 16)
 
@@ -192,15 +194,15 @@ def test_wrapper_raises_for_a_cuda_tensor_without_a_kernel():
     q = torch.empty((1, 1, 16, 32), device="meta")
     reference = mock.Mock(side_effect=AssertionError("fell back to the plain path"))
     with mock.patch.object(t_fa, "_check_inputs"), \
-            mock.patch.object(t_fa, "_nvcc", return_value=None), \
+            mock.patch.object(ck, "_nvcc", return_value=None), \
             mock.patch.object(t_fa, "flash_forward_reference", reference), \
-            mock.patch.object(t_fa, "BUILD_DIR", t_fa.BUILD_DIR / "absent"):
-        t_fa._library.cache_clear()
+            mock.patch.object(ck, "BUILD_DIR", ck.BUILD_DIR / "absent"):
+        ck.library.cache_clear()
         try:
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 t_fa.flash_forward(q, q, q)
         finally:
-            t_fa._library.cache_clear()
+            ck.library.cache_clear()
     reference.assert_not_called()
 
 

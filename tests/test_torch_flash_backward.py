@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from multimodal_diffusion_torch.ops import attention as t_att
+from multimodal_diffusion_torch.ops import cuda_kernels as ck
 from multimodal_diffusion_torch.ops import flash_attention as t_fa
 from multimodal_diffusion_tpu.ops.flash_attention import _flash_backward, _flash_forward
 
@@ -130,10 +131,11 @@ def test_flash_attention_grads_match_dense_autograd(Dh, mask):
     kpad = _key_padding(2, 133, mask, seed=Dh)
     kpm = None if kpad is None else torch.from_numpy(kpad)
     grads = {}
-    for use_kernel in (True, False):
+    for kernel in (True, False):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        out = t_att.multi_head_attention(*leaves, key_padding_mask=kpm, use_kernel=use_kernel)
-        grads[use_kernel] = torch.autograd.grad(out, leaves, g)
+        with t_att.attention_path("kernel" if kernel else "dense"):
+            out = t_att.multi_head_attention(*leaves, key_padding_mask=kpm)
+            grads[kernel] = torch.autograd.grad(out, leaves, g)
     for name, a, b in zip(("dq", "dk", "dv"), grads[True], grads[False]):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, msg=name)
         if mask == "row_all_masked":
@@ -157,15 +159,15 @@ def test_backward_wrapper_raises_for_a_cuda_tensor_without_a_kernel():
     lse = torch.empty((1, 1, 16), device="meta")
     reference = mock.Mock(side_effect=AssertionError("fell back to the plain path"))
     with mock.patch.object(t_fa, "_check_inputs"), \
-            mock.patch.object(t_fa, "_nvcc", return_value=None), \
+            mock.patch.object(ck, "_nvcc", return_value=None), \
             mock.patch.object(t_fa, "flash_backward_reference", reference), \
-            mock.patch.object(t_fa, "BUILD_DIR", t_fa.BUILD_DIR / "absent"):
-        t_fa._library.cache_clear()
+            mock.patch.object(ck, "BUILD_DIR", ck.BUILD_DIR / "absent"):
+        ck.library.cache_clear()
         try:
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 t_fa.flash_backward(q, q, q, q, lse, q)
         finally:
-            t_fa._library.cache_clear()
+            ck.library.cache_clear()
     reference.assert_not_called()
 
 
@@ -188,7 +190,7 @@ def test_alignment_check_takes_the_train_step_operands():
     for Dh in t_fa.SUPPORTED_HEAD_DIMS:
         q, k, v = _fused_qkv_views(2, 133, 8, Dh, torch.bfloat16)
         dout = torch.zeros((2, 133, 8, Dh), dtype=torch.bfloat16).transpose(1, 2)
-        assert t_fa.misaligned_operands(q=q, k=k, v=v, dout=dout) == []
+        assert ck.misaligned_operands(q=q, k=k, v=v, dout=dout) == []
 
 
 def test_alignment_check_names_the_misaligned_operands():
@@ -199,21 +201,21 @@ def test_alignment_check_names_the_misaligned_operands():
     off_base = wide[..., 4:68]
     assert off_base.data_ptr() % 16 == 8
     odd_rows = torch.zeros((2, 2, 40, 33), dtype=torch.bfloat16)[..., :32]
-    assert t_fa.misaligned_operands(q=ok, k=off_base, v=odd_rows, dout=ok) == ["k", "v"]
+    assert ck.misaligned_operands(q=ok, k=off_base, v=odd_rows, dout=ok) == ["k", "v"]
     one_row = torch.zeros((2, 2, 1, 33), dtype=torch.bfloat16)[..., :32]
     assert one_row.stride(2) == 33
-    assert t_fa.misaligned_operands(q=one_row[:1, :1]) == []
+    assert ck.misaligned_operands(q=one_row[:1, :1]) == []
     # fp32 steps in units of 4 elements
-    assert t_fa.misaligned_operands(q=torch.zeros((1, 2, 8, 34))[..., :32]) == ["q"]
+    assert ck.misaligned_operands(q=torch.zeros((1, 2, 8, 34))[..., :32]) == ["q"]
 
 
 def test_require_aligned_raises_and_names_the_operand():
     """No slow path behind the check: the wrapper's guard raises."""
     q = torch.zeros((1, 2, 16, 40), dtype=torch.bfloat16)[..., 4:36]
     ok = torch.zeros((1, 2, 16, 32), dtype=torch.bfloat16)
-    t_fa.require_aligned("flash_backward", q=ok, dout=ok)
+    ck.require_aligned("flash_backward", q=ok, dout=ok)
     with pytest.raises(ValueError, match=r"flash_backward: \['dout'\] not 16-byte aligned"):
-        t_fa.require_aligned("flash_backward", q=ok, dout=q)
+        ck.require_aligned("flash_backward", q=ok, dout=q)
 
 
 def test_build_tag_follows_the_source_and_its_headers(tmp_path):
@@ -226,21 +228,21 @@ def test_build_tag_follows_the_source_and_its_headers(tmp_path):
     src.write_text('#include "common.cuh"\n__global__ void k() {}\n')
     other.write_text("__global__ void o() {}\n")
     header.write_text("#define TILE 64\n")
-    tag = t_fa.source_tag(src)
-    assert t_fa.source_tag(src) == tag
+    tag = ck.source_tag(src)
+    assert ck.source_tag(src) == tag
     other.write_text("__global__ void o2() {}\n")
-    assert t_fa.source_tag(src) == tag
+    assert ck.source_tag(src) == tag
     header.write_text("#define TILE 32\n")
-    tag_header = t_fa.source_tag(src)
+    tag_header = ck.source_tag(src)
     assert tag_header != tag
     src.write_text('#include "common.cuh"\n__global__ void k2() {}\n')
-    assert t_fa.source_tag(src) not in (tag, tag_header)
+    assert ck.source_tag(src) not in (tag, tag_header)
     (tmp_path / "new.h").write_text("// a new header\n")
-    assert t_fa.source_tag(src) not in (tag, tag_header)
+    assert ck.source_tag(src) not in (tag, tag_header)
 
 
 def test_every_kernel_source_is_keyed_with_the_shared_header():
     """The real sources: csrc/flash_common.cuh is part of both tags."""
-    header = t_fa.SOURCES["flash_bwd"].parent / "flash_common.cuh"
+    header = ck.SOURCES["flash_bwd"].parent / "flash_common.cuh"
     assert header.exists()
-    assert '#include "flash_common.cuh"' in t_fa.SOURCES["flash_bwd"].read_text()
+    assert '#include "flash_common.cuh"' in ck.SOURCES["flash_bwd"].read_text()

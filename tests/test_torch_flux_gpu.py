@@ -14,8 +14,8 @@ import torch
 
 from multimodal_diffusion_torch.infer.sample_flux import position_ids
 from multimodal_diffusion_torch.models import flux
-from multimodal_diffusion_torch.ops import attention as t_att
-from multimodal_diffusion_torch.ops.flash_attention import misaligned_operands
+from multimodal_diffusion_torch.ops.attention import attention_path
+from multimodal_diffusion_torch.ops.cuda_kernels import misaligned_operands
 
 WIDTHS = dict(hidden_size=3072, num_heads=24, axes_dim=(16, 56, 56), mlp_ratio=4.0)
 TXT, GRID = 512, 32  # 512 text tokens and a 32 x 32 patch grid: N = 1536
@@ -50,15 +50,9 @@ def _inputs(dev):
     return img, txt, vec, pe
 
 
-def _dense_attention(monkeypatch):
-    mha = t_att.multi_head_attention
-    monkeypatch.setattr(flux, "multi_head_attention",
-                        lambda q, k, v: mha(q, k, v, use_kernel=False))
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["double", "single"])
-def test_block_through_the_kernel_matches_dense(cuda, kind, monkeypatch):
+def test_block_through_the_kernel_matches_dense(cuda, kind):
     """bf16 operands on both paths; the kernel and the dense path differ
     in their summation order and the kernel's bf16 P: 2e-2 of the update's
     size."""
@@ -69,11 +63,11 @@ def test_block_through_the_kernel_matches_dense(cuda, kind, monkeypatch):
             got = torch.cat(block(img, txt, vec, pe), 1)
         else:
             got = block(torch.cat((txt, img), 1), vec, pe)
-        _dense_attention(monkeypatch)
-        if kind == "double":
-            want = torch.cat(block(img, txt, vec, pe), 1)
-        else:
-            want = block(torch.cat((txt, img), 1), vec, pe)
+        with attention_path("dense"):
+            if kind == "double":
+                want = torch.cat(block(img, txt, vec, pe), 1)
+            else:
+                want = block(torch.cat((txt, img), 1), vec, pe)
     start = torch.cat((img, txt) if kind == "double" else (txt, img), 1)
     update = (want - start).norm()
     assert math.isfinite(float(update)) and float(update) > 0

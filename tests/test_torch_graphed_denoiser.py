@@ -16,6 +16,8 @@ forward. Imports no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_graphed_denoiser.py
 """
 
+import collections
+import contextlib
 import time
 import types
 
@@ -25,8 +27,9 @@ import torch
 from multimodal_diffusion_torch.infer.ddim import sampler_from_config
 from multimodal_diffusion_torch.infer.sample_clip import build_components
 from multimodal_diffusion_torch.models import adapters, graphed
+from multimodal_diffusion_torch.ops import cuda_kernels as ck
 from multimodal_diffusion_torch.ops import flash_attention as fa
-from multimodal_diffusion_torch.ops import rms_norm as rn
+from multimodal_diffusion_torch.ops.attention import attention_path
 from multimodal_diffusion_torch.utils import profiling as TP
 from multimodal_diffusion_torch.utils.io import (deep_update, latent_shapes_from_config,
                                                mvp_v2a_config, shrunk_config,
@@ -86,10 +89,10 @@ def cpu_model():
 # ---------------------------------------------------------------------------
 
 
-def eager(model, args, kw, use_kernel=None):
+def eager(model, args, kw):
     """The pass without a graph, on the current stream."""
-    return model._denoise_tokens(*args, use_kernel=use_kernel, tok_m=kw.get("tok_m"),
-                                 keep_m=kw.get("keep_m"), mouth_grid=kw.get("mouth_grid"))
+    return model._denoise_tokens(*args, tok_m=kw.get("tok_m"), keep_m=kw.get("keep_m"),
+                                 mouth_grid=kw.get("mouth_grid"))
 
 
 def _tensors(args, kw):
@@ -110,18 +113,18 @@ def test_ineligible_calls_run_eagerly(cpu_model, monkeypatch, case, reason):
     empty and the result is the plain pass's."""
     cfg, model = cpu_model
     args, kw = call_args(model, cfg)
-    use_kernel = False if case == "dense" else None
     if case == "training":
         monkeypatch.setattr(model, "training", True)
     if case == "layout":
         monkeypatch.setattr(model.core, "layout",
                             types.SimpleNamespace(tp_n=2, ctx_n=1, pipe_n=1))
     model.graphs.calls.clear()
-    with torch.set_grad_enabled(case == "grad"):
-        assert graphed.ineligible(model, _tensors(args, kw), use_kernel) == reason
+    with attention_path("dense" if case == "dense" else None), \
+            torch.set_grad_enabled(case == "grad"):
+        assert graphed.ineligible(model, _tensors(args, kw)) == reason
         if case in ("cpu", "grad", "dense"):
-            got = model.denoise_tokens(*args, use_kernel=use_kernel, **kw)
-            want = eager(model, args, kw, use_kernel)
+            got = model.denoise_tokens(*args, **kw)
+            want = eager(model, args, kw)
             for name in want:
                 torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
     assert not model.graphs.calls
@@ -223,6 +226,28 @@ def test_spans_of_warm_up_capture_and_replay(stand_in):
             graphs(model, *_toy(3), ())
         children.append([s.name for s in TP.spans() if s.parent == outer._id])
     assert children == [[], ["denoiser.capture", "denoiser.replay"], ["denoiser.replay"]]
+
+
+def test_a_capture_takes_back_its_count_and_each_replay_adds_it(monkeypatch):
+    """What a capture counts, of any kernel's name, is taken out of the
+    registry and handed to the captured call, which adds exactly that at
+    each replay (the capture here is a stand-in: no card)."""
+    graph = types.SimpleNamespace(replay=lambda: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *args, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(graphed.DenoiserGraphs, "_stream", lambda self, device: None)
+    counted = collections.Counter(flash_fwd=2, rms_norm=5, a_later_kernel=1)
+
+    def fn(x):
+        ck.LAUNCHES.update(counted)
+        return {"y": x * 2}
+
+    before = ck.LAUNCHES.copy()
+    call = graphed.DenoiserGraphs()._capture(fn, {"x": torch.ones(3)})
+    assert ck.LAUNCHES == before and call.launches == counted
+    for _ in range(2):
+        call.replay({"x": torch.ones(3)})
+    assert ck.LAUNCHES == before + counted + counted
 
 
 def test_a_copy_of_the_model_starts_without_graphs(cpu_model, stand_in):
@@ -366,15 +391,15 @@ def test_launch_counter_counts_kernel_executions(cuda):
     model = card_model(cfg)
     layers = cfg["model"]["core"]["n_layers"]
     norms = 2 * layers + 1  # two a block and the final norm
-    fa.flash_forward.launches = rn.rms_norm.launches = 0
+    ck.LAUNCHES.clear()
     with torch.inference_mode():
         args, kw = call_args(model, cfg, seed=0, device=cuda)
         for k in range(1, 5):
             model.denoise_tokens(*args, **kw)
-            assert fa.flash_forward.launches == k * layers
-            assert rn.rms_norm.launches == k * norms
+            assert ck.LAUNCHES["flash_fwd"] == k * layers
+            assert ck.LAUNCHES["rms_norm"] == k * norms
     (call,) = model.graphs.calls.values()
-    assert call.launches == layers and call.norm_launches == norms
+    assert call.launches == {"flash_fwd": layers, "rms_norm": norms}
 
 
 @pytest.mark.gpu

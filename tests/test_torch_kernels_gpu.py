@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from multimodal_diffusion_torch.ops import attention as t_att
+from multimodal_diffusion_torch.ops import cuda_kernels as ck
 from multimodal_diffusion_torch.ops import flash_attention as t_fa
 
 
@@ -110,7 +111,7 @@ def test_flash_fwd_takes_the_sampler_strides(cuda):
     g = torch.Generator(device=cuda).manual_seed(14)
     qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    assert not t_fa.misaligned_operands(q=q, k=k, v=v)
+    assert not ck.misaligned_operands(q=q, k=k, v=v)
     out, lse = t_fa.flash_forward(q, k, v)
     assert out.transpose(1, 2).is_contiguous()  # a [B, N, H, Dh] buffer
     ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
@@ -128,10 +129,10 @@ def test_flash_fwd_raises_on_a_misaligned_view(cuda):
     wide[..., 4:68] = k
     k_off = wide[..., 4:68]
     assert k_off.stride(-1) == 1 and k_off.data_ptr() % 16 == 8
-    before = t_fa.flash_forward.launches
+    before = ck.LAUNCHES["flash_fwd"]
     with pytest.raises(ValueError, match=r"flash_forward: \['k'\] not 16-byte aligned"):
         t_fa.flash_forward(q, k_off, v)
-    assert t_fa.flash_forward.launches == before
+    assert ck.LAUNCHES["flash_fwd"] == before
     wide32 = torch.zeros((2, 2, 40, 65), dtype=torch.float32, device=cuda)
     wide32[..., 1:] = k.float()
     out, lse = t_fa.flash_forward(q.float(), wide32[..., 1:], v.float())
@@ -157,11 +158,12 @@ def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
     q, k, v, _ = _inputs(cuda, (2, 2, 40, 32), torch.bfloat16, 0)
     kpm = torch.zeros((2, 40), dtype=torch.bool, device=cuda)
     kpm[1, 30:] = True
-    before = t_fa.flash_forward.launches
+    before = ck.LAUNCHES["flash_fwd"]
     out = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm)
-    assert t_fa.flash_forward.launches == before + 1
-    dense = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm, use_kernel=False)
-    assert t_fa.flash_forward.launches == before + 1
+    assert ck.LAUNCHES["flash_fwd"] == before + 1
+    with t_att.attention_path("dense"):
+        dense = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm)
+    assert ck.LAUNCHES["flash_fwd"] == before + 1
     torch.testing.assert_close(out.float(), dense.float(), rtol=2e-2, atol=2e-2)
 
 
@@ -197,9 +199,9 @@ def test_flash_bwd_matches_reference(cuda, shape, n_masked, dtype):
     out, lse = t_fa.flash_forward(q, k, v, valid)
     dout = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(3),
                        device=cuda).to(dtype)
-    before = (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches)
+    before = (ck.LAUNCHES["flash_bwd_dkdv"], ck.LAUNCHES["flash_bwd_dq"])
     grads = t_fa.flash_backward(q, k, v, out, lse, dout, valid)
-    assert (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches) == (
+    assert (ck.LAUNCHES["flash_bwd_dkdv"], ck.LAUNCHES["flash_bwd_dq"]) == (
         before[0] + 1, before[1] + 1)
     refs = t_fa.flash_backward_reference(q, k, v, out, lse, dout, valid)
     torch.cuda.synchronize()
@@ -265,7 +267,7 @@ def test_flash_bwd_takes_the_train_step_strides(cuda):
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     dout = torch.randn((B, N, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
     dout = dout.transpose(1, 2)
-    assert not t_fa.misaligned_operands(q=q, k=k, v=v, dout=dout)
+    assert not ck.misaligned_operands(q=q, k=k, v=v, dout=dout)
     grads, refs = _bwd_grads_and_refs(q, k, v, dout, None)
     for name, gr, r in zip(("dq", "dk", "dv"), grads, refs):
         assert _rel_err(gr, r) <= BWD_TOL[torch.bfloat16], name
@@ -282,10 +284,10 @@ def test_flash_bwd_raises_on_a_misaligned_view(cuda):
     q_off = wide[..., 4:68]
     assert q_off.stride(-1) == 1 and q_off.data_ptr() % 16 == 8
     out, lse = t_fa.flash_forward(q, k, v)
-    before = (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches)
+    before = (ck.LAUNCHES["flash_bwd_dkdv"], ck.LAUNCHES["flash_bwd_dq"])
     with pytest.raises(ValueError, match="16-byte aligned"):
         t_fa.flash_backward(q_off, k, v, out, lse, q)
-    assert (t_fa.flash_backward.dkdv_launches, t_fa.flash_backward.dq_launches) == before
+    assert (ck.LAUNCHES["flash_bwd_dkdv"], ck.LAUNCHES["flash_bwd_dq"]) == before
     # fp32 goes through the FMA kernels, which take any alignment of 4 bytes
     wide32 = torch.zeros((2, 2, 40, 65), dtype=torch.float32, device=cuda)
     wide32[..., 1:] = q.float()
@@ -331,15 +333,16 @@ def test_flash_attention_autograd_launches_each_kernel_once(cuda):
     kpm = torch.zeros((2, 133), dtype=torch.bool, device=cuda)
     kpm[1, 100:] = True
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    counts = lambda: (t_fa.flash_forward.launches, t_fa.flash_backward.dkdv_launches,  # noqa: E731
-                      t_fa.flash_backward.dq_launches)
+    counts = lambda: (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_bwd_dkdv"],  # noqa: E731
+                      ck.LAUNCHES["flash_bwd_dq"])
     before = counts()
     out = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm)
     dout = torch.randn_like(out)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert counts() == tuple(c + 1 for c in before)
-    dense = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm, use_kernel=False)
-    refs = torch.autograd.grad(dense, (q, k, v), dout)
+    with t_att.attention_path("dense"):
+        dense = t_att.multi_head_attention(q, k, v, key_padding_mask=kpm)
+        refs = torch.autograd.grad(dense, (q, k, v), dout)
     assert counts() == tuple(c + 1 for c in before)
     for g, r in zip(grads, refs):
         assert _rel_err(g, r) <= 1e-4
@@ -354,7 +357,7 @@ def test_flash_fwd_takes_the_flagship_sampler_strides(cuda):
     g = torch.Generator(device=cuda).manual_seed(15)
     qkv = torch.randn((B, N, 3, H, Dh), generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    assert not t_fa.misaligned_operands(q=q, k=k, v=v)
+    assert not ck.misaligned_operands(q=q, k=k, v=v)
     out, lse = t_fa.flash_forward(q, k, v)
     assert out.transpose(1, 2).is_contiguous()
     ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
@@ -374,8 +377,8 @@ def test_input_gradient_inside_a_gradless_sampler(cuda, outer):
     B, N, H, Dh = 8, 421, 8, 128
     g = torch.Generator(device=cuda).manual_seed(16)
     w = (torch.randn((3 * H * Dh, 64), generator=g, device=cuda) * 0.2).requires_grad_()
-    counts = lambda: (t_fa.flash_forward.launches, t_fa.flash_backward.dkdv_launches,  # noqa: E731
-                      t_fa.flash_backward.dq_launches)
+    counts = lambda: (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_bwd_dkdv"],  # noqa: E731
+                      ck.LAUNCHES["flash_bwd_dq"])
 
     def input_grad(x, attention):
         x = x.clone().requires_grad_(True)
@@ -559,13 +562,15 @@ def test_text_families_denoise_through_the_kernel(cuda):
     z = torch.randn((2, 4, 8, 8), generator=g, device=cuda)
     t = torch.tensor([10, 900], device=cuda)
     with torch.inference_mode():
-        before = t_fa.flash_forward.launches
+        before = ck.LAUNCHES["flash_fwd"]
         text, _ = model.encode_text(ids)
-        assert t_fa.flash_forward.launches - before == 2
+        assert ck.LAUNCHES["flash_fwd"] - before == 2
         pad = ids == 256
-        a = model.denoise(z, t, text, pad, use_kernel=True)
-        assert t_fa.flash_forward.launches - before == 5
-        b = model.denoise(z, t, text, pad, use_kernel=False)
+        with t_att.attention_path("kernel"):
+            a = model.denoise(z, t, text, pad)
+        assert ck.LAUNCHES["flash_fwd"] - before == 5
+        with t_att.attention_path("dense"):
+            b = model.denoise(z, t, text, pad)
     assert a.shape == (2, 4, 8, 8)
     assert float((a.float() - b.float()).abs().max()) <= 1.5e-2 * float(b.float().abs().max())
 
@@ -686,10 +691,12 @@ def test_pixel_dit_and_remat_through_the_kernels(cuda):
                     device=cuda)
     t = torch.tensor([0, 10, 500, 999], device=cuda)
     with torch.inference_mode():
-        before = t_fa.flash_forward.launches
-        a = model(x, t, use_kernel=True)
-        assert t_fa.flash_forward.launches - before == 2
-        b = model(x, t, use_kernel=False)
+        before = ck.LAUNCHES["flash_fwd"]
+        with t_att.attention_path("kernel"):
+            a = model(x, t)
+        assert ck.LAUNCHES["flash_fwd"] - before == 2
+        with t_att.attention_path("dense"):
+            b = model(x, t)
     assert float((a.float() - b.float()).abs().max()) <= 1.5e-2 * float(b.float().abs().max())
 
     grads, launches = {}, {}
@@ -702,10 +709,10 @@ def test_pixel_dit_and_remat_through_the_kernels(cuda):
         set_dropout_generator(net, gen)
         h = torch.randn((4, 64, 256), generator=torch.Generator(device=cuda).manual_seed(4),
                         device=cuda)
-        before = t_fa.flash_forward.launches
+        before = ck.LAUNCHES["flash_fwd"]
         loss = net(h).float().square().mean()
         g = torch.autograd.grad(loss, list(net.parameters()))
-        launches[remat] = t_fa.flash_forward.launches - before
+        launches[remat] = ck.LAUNCHES["flash_fwd"] - before
         grads[remat] = (g, gen.get_state())
     assert (launches[False], launches[True]) == (3, 6)
     assert all(torch.equal(p, q) for p, q in zip(grads[True][0], grads[False][0]))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import _torch_dist as D
-from multimodal_diffusion_torch.ops import flash_attention as fa
+from multimodal_diffusion_torch.ops import cuda_kernels as ck
 from multimodal_diffusion_torch.parallel.launch import run_ranks
 from multimodal_diffusion_torch.train import checkpoint as TC
 from multimodal_diffusion_torch.train.trainer import create_trainer
@@ -55,8 +55,8 @@ def test_model2_checkpoint_over_nccl_crosses_to_one_process():
              "noise_a": rng.standard_normal(s["z_audio"]).astype(np.float32),
              "cfg_u": rng.uniform(0, 1, B).astype(np.float32),
              "clean_u": rng.uniform(0, 1, B).astype(np.float32)}
-    for name in fa.SOURCES:  # built once here, before the ranks load them
-        fa._library(name)
+    for name in ck.SOURCES:  # built once here, before the ranks load them
+        ck.build(name)
     trees = run_ranks(D.nccl_tp_checkpoint, 2, cfg, batch, draws, 3, backend="nccl",
                       timeout=600)
     _assert_trees_equal(trees[0], trees[1])

@@ -34,7 +34,9 @@ from multimodal_diffusion_torch.datasets import frames_dataset as TFD
 from multimodal_diffusion_torch.models import schedules as TSch
 from multimodal_diffusion_torch.models import tokenizers as TTok
 from multimodal_diffusion_torch.models import vae_video3d as TV
+from multimodal_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
 from multimodal_diffusion_torch.ops import flash_attention as t_fa
+from multimodal_diffusion_torch.ops.attention import attention_path
 from multimodal_diffusion_torch.train import trainer as TT
 from multimodal_diffusion_torch.utils import profiling as TP
 from multimodal_diffusion_torch.utils.convert import load_jax_params
@@ -93,18 +95,19 @@ def _remat_run(remat: bool, calls):
     gradient pass, the generator's state after it, the steps' metrics, the
     parameters after them, the generator's state after them)."""
     cfg = _flagship_with_dropout(remat)
-    bundle = TT.create_trainer(cfg, device="cpu", batch_size=2, use_kernel=True)
-    assert bundle.model.core.cfg.remat is remat and bundle.model.core.cfg.dropout == 0.1
-    batch = _batch(bundle.latent_shapes)
-    model, sc = bundle.model.train(), bundle.step_config
-    named = list(model.named_parameters())
-    calls[0] = 0
-    draws = TT.draw_step_randomness(bundle.state.generator, sc)
-    loss, _ = TT.train_loss(model, sc, bundle.abar_v, bundle.abar_a,
-                            TT.batch_to_device(batch, bundle.device), 0.0, draws, True)
-    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-    n_calls, gen_state = calls[0], bundle.state.generator.get_state()
-    metrics = [bundle.train_step(bundle.state, batch, t) for t in (0.0, 1.0)]
+    with attention_path("kernel"):
+        bundle = TT.create_trainer(cfg, device="cpu", batch_size=2)
+        assert bundle.model.core.cfg.remat is remat and bundle.model.core.cfg.dropout == 0.1
+        batch = _batch(bundle.latent_shapes)
+        model, sc = bundle.model.train(), bundle.step_config
+        named = list(model.named_parameters())
+        calls[0] = 0
+        draws = TT.draw_step_randomness(bundle.state.generator, sc)
+        loss, _ = TT.train_loss(model, sc, bundle.abar_v, bundle.abar_a,
+                                TT.batch_to_device(batch, bundle.device), 0.0, draws, True)
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        n_calls, gen_state = calls[0], bundle.state.generator.get_state()
+        metrics = [bundle.train_step(bundle.state, batch, t) for t in (0.0, 1.0)]
     after = {n: p.detach().clone() for n, p in named}
     return (loss.detach(), dict(zip([n for n, _ in named], grads)), n_calls, gen_state,
             metrics, after, bundle.state.generator.get_state())
@@ -139,19 +142,41 @@ def test_remat_changes_nothing_without_a_graph(count_forwards):
     """Eval mode, or no grad: one forward a layer, the same output."""
     outs = {}
     for remat in (False, True):
-        bundle = TT.create_trainer(_flagship_with_dropout(remat), device="cpu", batch_size=2,
-                                   use_kernel=True)
+        bundle = TT.create_trainer(_flagship_with_dropout(remat), device="cpu", batch_size=2)
         core = bundle.model.core
         x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 12, 64))
                              .astype(np.float32))
         count_forwards[0] = 0
-        with torch.no_grad():
-            a = core.train()(x, None, True)  # dropout on, no graph
-        gen = bundle.state.generator.get_state()
-        b = core.eval()(x.requires_grad_(), None, True)  # graph, eval mode
+        with attention_path("kernel"):
+            with torch.no_grad():
+                a = core.train()(x)  # dropout on, no graph
+            gen = bundle.state.generator.get_state()
+            b = core.eval()(x.requires_grad_())  # graph, eval mode
         assert count_forwards[0] == 2 * core.cfg.n_layers
         outs[remat] = (a, b.detach(), gen)
     assert all(torch.equal(p, q) for p, q in zip(outs[True], outs[False]))
+
+
+def test_remat_recompute_keeps_the_forward_path_after_its_scope(count_forwards):
+    """The kernel path forced around the forward only: backward() runs after
+    the scope has closed, and the recompute still takes the kernels' plain
+    versions (one more forward a layer), so every gradient is the bits of
+    the same step without remat."""
+    grads, calls = {}, {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        net = MMDiT(MMDiTConfig(d_model=64, n_layers=2, n_heads=2, dropout=0.0,
+                                remat=remat)).train()
+        x = torch.randn((2, 12, 64), generator=torch.Generator().manual_seed(1),
+                        requires_grad=True)
+        count_forwards[0] = 0
+        with attention_path("kernel"):
+            loss = net(x).square().mean()
+        loss.backward()
+        calls[remat] = count_forwards[0]
+        grads[remat] = [x.grad] + [p.grad for p in net.parameters()]
+    assert (calls[False], calls[True]) == (2, 4)
+    assert all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
 
 
 # ---------------------------------------------------------------------------

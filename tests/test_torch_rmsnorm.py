@@ -6,6 +6,7 @@ so training keeps its gradients bit for bit; any other tensor is checked
 and launches or raises, never the plain version. The kernel itself runs only
 on a card (tests/test_torch_rmsnorm_kernel.py)."""
 
+import collections
 import types
 from unittest import mock
 
@@ -16,7 +17,7 @@ import torch
 
 from multimodal_diffusion_torch.models import graphed
 from multimodal_diffusion_torch.models import mmdit as TM
-from multimodal_diffusion_torch.ops import flash_attention as t_fa
+from multimodal_diffusion_torch.ops import cuda_kernels as ck
 from multimodal_diffusion_torch.ops import rms_norm as rn
 from multimodal_diffusion_tpu.models import mmdit as JM
 
@@ -43,7 +44,7 @@ def _inputs(shape, x_dtype, w_dtype, seed=0, requires_grad=False):
 @pytest.mark.parametrize("x_dtype", DTYPES)
 def test_cpu_tensors_take_the_plain_version(x_dtype, w_dtype, out_dtype):
     x, w = _inputs((2, 5, 64), x_dtype, w_dtype)
-    with mock.patch.object(rn, "_library", side_effect=AssertionError("kernel path")):
+    with mock.patch.object(ck, "library", side_effect=AssertionError("kernel path")):
         got = rn.rms_norm(x, w, 1e-6, out_dtype)
     want = present_formula(x, w, 1e-6, out_dtype)
     assert got.dtype == out_dtype and torch.equal(got, want)
@@ -153,7 +154,7 @@ def test_wrapper_checks_what_the_kernel_takes(case, match):
         x = _meta((2, 5, 68))[..., :64]  # rows 136 bytes apart
     reference = mock.Mock(side_effect=AssertionError("fell back to the plain version"))
     with mock.patch.object(rn, "rms_norm_reference", reference), \
-            mock.patch.object(rn, "_library", side_effect=AssertionError("launched")):
+            mock.patch.object(ck, "library", side_effect=AssertionError("launched")):
         with pytest.raises(ValueError, match=match):
             rn.rms_norm(x, w, 1e-6, out)
 
@@ -164,10 +165,10 @@ def test_the_final_norms_strided_view_is_taken_in_place():
     launch = mock.Mock(return_value=0)
     lib = types.SimpleNamespace(rms_norm=launch)
     w = _meta((1024,), torch.bfloat16)
-    with mock.patch.object(rn, "_library", return_value=lib), \
+    with mock.patch.object(ck, "library", return_value=lib), \
             mock.patch.object(torch.cuda, "current_stream",
                               return_value=types.SimpleNamespace(cuda_stream=0)):
-        before = rn.rms_norm.launches
+        before = ck.LAUNCHES["rms_norm"]
         out = rn.rms_norm(_meta((16, 424, 1024))[:, :421], w, 1e-6, torch.bfloat16)
         rn.rms_norm(_meta((2, 421, 1024), torch.float32), w, 1e-6, torch.float16)
     assert out.shape == (16, 421, 1024) and out.is_contiguous()
@@ -176,44 +177,45 @@ def test_the_final_norms_strided_view_is_taken_in_place():
     assert args[9:12] == (1, 1, 1)  # bf16 x, weight and out
     assert launch.call_args_list[1].args[4:9] == (2, 421, 1024, 421 * 1024, 1024)
     assert launch.call_args_list[1].args[9:12] == (0, 1, 2)  # fp32 x, bf16 weight, fp16 out
-    assert rn.rms_norm.launches == before + 2
+    assert ck.LAUNCHES["rms_norm"] == before + 2
 
 
 def test_wrapper_raises_for_a_device_tensor_without_a_kernel():
     """No nvcc to build the kernel: the wrapper raises, and never runs the
     plain version."""
     reference = mock.Mock(side_effect=AssertionError("fell back to the plain version"))
-    with mock.patch.object(t_fa, "_nvcc", return_value=None), \
-            mock.patch.object(t_fa, "BUILD_DIR", t_fa.BUILD_DIR / "absent"), \
+    with mock.patch.object(ck, "_nvcc", return_value=None), \
+            mock.patch.object(ck, "BUILD_DIR", ck.BUILD_DIR / "absent"), \
             mock.patch.object(rn, "rms_norm_reference", reference):
-        rn._library.cache_clear()
+        ck.library.cache_clear()
         try:
             with pytest.raises(RuntimeError, match="nvcc not found: the CUDA kernel rms_norm.cu"):
                 rn.rms_norm(_meta((2, 5, 64)), _meta((64,)), 1e-6, torch.bfloat16)
         finally:
-            rn._library.cache_clear()
+            ck.library.cache_clear()
 
 
 def test_build_is_keyed_by_the_kernels_source(tmp_path):
     """An existing library of the source's content is used as it is; the key
     changes with the source."""
-    lib = tmp_path / f"librms_norm_{t_fa.source_tag(rn.SOURCE)}.so"
+    source = ck.SOURCES["rms_norm"]
+    lib = tmp_path / f"librms_norm_{ck.source_tag(source)}.so"
     lib.write_bytes(b"")
-    with mock.patch.object(t_fa, "BUILD_DIR", tmp_path), \
-            mock.patch.object(t_fa, "_nvcc", side_effect=AssertionError("rebuilt")):
-        assert rn.build() == lib
+    with mock.patch.object(ck, "BUILD_DIR", tmp_path), \
+            mock.patch.object(ck, "_nvcc", side_effect=AssertionError("rebuilt")):
+        assert ck.build("rms_norm") == lib
     copy = tmp_path / "src" / "rms_norm.cu"
     copy.parent.mkdir()
-    copy.write_text(rn.SOURCE.read_text())
-    tag = t_fa.source_tag(copy)
+    copy.write_text(source.read_text())
+    tag = ck.source_tag(copy)
     copy.write_text(copy.read_text() + "// changed\n")
-    assert t_fa.source_tag(copy) != tag
+    assert ck.source_tag(copy) != tag
 
 
 def test_the_kernel_source_holds_the_plain_versions_arithmetic():
     """No fast-math and no reciprocal square root: the kernel rounds each
     step as the plain version does, and its C entry point is the one bound."""
-    src = rn.SOURCE.read_text()
+    src = ck.SOURCES["rms_norm"].read_text()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     for op in ("__fsqrt_rn", "__fdiv_rn", "__fmul_rn", "__fadd_rn", "1e-12f"):
         assert op in code, op
@@ -225,11 +227,12 @@ def test_the_kernel_source_holds_the_plain_versions_arithmetic():
 def test_a_replay_adds_back_both_kernels_launches():
     """The counters count kernel executions: a captured call's replay adds
     its flash forward and RMSNorm launches again."""
+    counted = collections.Counter(flash_fwd=2, rms_norm=5)
     call = graphed.CapturedCall(types.SimpleNamespace(replay=lambda: None),
-                                {"x": torch.zeros(3)}, {"y": torch.ones(3)}, 2, 5)
-    fa0, rn0 = t_fa.flash_forward.launches, rn.rms_norm.launches
+                                {"x": torch.zeros(3)}, {"y": torch.ones(3)}, counted)
+    fa0, rn0 = ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["rms_norm"]
     out = call.replay({"x": torch.ones(3)})
     out["y"].add_(1.0)  # a clone: the static output is untouched
-    assert (t_fa.flash_forward.launches, rn.rms_norm.launches) == (fa0 + 2, rn0 + 5)
+    assert (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["rms_norm"]) == (fa0 + 2, rn0 + 5)
     assert torch.equal(call.outputs["y"], torch.ones(3))
     assert torch.equal(call.inputs["x"], torch.ones(3))

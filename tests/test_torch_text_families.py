@@ -563,9 +563,9 @@ def test_core_sends_the_text_and_tail_mask_to_attention_as_one_row(t2i, monkeypa
     seen = []
     real = mmdit.multi_head_attention
 
-    def spy(q, k, v, *, key_padding_mask=None, use_kernel=None):
+    def spy(q, k, v, *, key_padding_mask=None):
         seen.append(key_padding_mask.clone())
-        return real(q, k, v, key_padding_mask=key_padding_mask, use_kernel=use_kernel)
+        return real(q, k, v, key_padding_mask=key_padding_mask)
 
     monkeypatch.setattr(mmdit, "multi_head_attention", spy)
     z, t, text, pad, _ = _denoise_inputs((2, 2, 4, 4), seed=2)

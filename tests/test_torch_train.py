@@ -22,6 +22,7 @@ import torch
 from _torch_parity import jax_model_and_params, shrunk_cfg, torch_model
 from multimodal_diffusion_torch.infer.sample_clip import build_components
 from multimodal_diffusion_torch.models import mmdit as TM
+from multimodal_diffusion_torch.ops.attention import attention_path
 from multimodal_diffusion_torch.train import checkpoint as TC
 from multimodal_diffusion_torch.train import losses as TL
 from multimodal_diffusion_torch.train import trainer as TT
@@ -84,8 +85,8 @@ def _jax_loss_and_grads(parity, target_is_video):
 
 
 @pytest.mark.parametrize("target_is_video", [1.0, 0.0])
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_train_loss_and_every_grad_match_jax(parity, use_kernel, target_is_video):
+@pytest.mark.parametrize("kernel", [True, False])
+def test_train_loss_and_every_grad_match_jax(parity, kernel, target_is_video):
     """Loss within 1e-5 relative; every parameter's grad within 2e-4 of its
     largest magnitude (fp32; the 3-D convolution grads sum over 27*C taps
     and B*T*H*W positions in another order: readings up to 3.2e-5). The
@@ -95,11 +96,14 @@ def test_train_loss_and_every_grad_match_jax(parity, use_kernel, target_is_video
     j_loss, j_grads = _jax_loss_and_grads(parity, target_is_video)
     tm = torch_model(cfg, params)  # eval(): no dropout, as deterministic=True
     sc = TT.StepConfig(z_video_shape=s["z_video"], z_audio_shape=s["z_audio"], T_v=1000,
-                       T_a=1000, cfg_drop_prob=0.1, use_kernel=use_kernel)
+                       T_a=1000, cfg_drop_prob=0.1)
     ab = torch.from_numpy(abar)
-    loss, parts = TT.train_loss(tm, sc, ab, ab, TT.batch_to_device(batch, torch.device("cpu")),
-                                target_is_video, {k: torch.from_numpy(v) for k, v in draws.items()})
-    loss.backward()
+    with attention_path("kernel" if kernel else "dense"):
+        loss, parts = TT.train_loss(tm, sc, ab, ab,
+                                    TT.batch_to_device(batch, torch.device("cpu")),
+                                    target_is_video,
+                                    {k: torch.from_numpy(v) for k, v in draws.items()})
+        loss.backward()
     assert float(parts["loss_main"].detach()) == float(loss.detach())
     np.testing.assert_allclose(float(loss.detach()), j_loss, rtol=1e-5)
     for name, p in tm.named_parameters():
@@ -339,20 +343,23 @@ def test_run_training_loss_falls():
     log carries throughput."""
     cfg = shrunk_cfg()
     cfg["training"].update(log_every=1, ckpt_every=10, val_every=0)
-    bundle = TT.create_trainer(cfg, device="cpu", batch_size=B, use_kernel=True)
-    ema0 = {k: v.clone() for k, v in bundle.state.ema.items()}
-    logs, ckpts = [], []
-    state = TT.run_training(cfg, bundle, _synthetic_batches(bundle.latent_shapes), max_steps=20,
-                            log_fn=lambda s, m: logs.append(m),
-                            checkpoint_fn=lambda s, st: ckpts.append(s))
+    with attention_path("kernel"):
+        bundle = TT.create_trainer(cfg, device="cpu", batch_size=B)
+        ema0 = {k: v.clone() for k, v in bundle.state.ema.items()}
+        logs, ckpts = [], []
+        state = TT.run_training(cfg, bundle, _synthetic_batches(bundle.latent_shapes),
+                                max_steps=20, log_fn=lambda s, m: logs.append(m),
+                                checkpoint_fn=lambda s, st: ckpts.append(s))
+        val = TT.run_validation(bundle, _synthetic_batches(bundle.latent_shapes, 3),
+                                n_batches=2)
+        again = TT.run_validation(bundle, _synthetic_batches(bundle.latent_shapes, 3),
+                                  n_batches=2)
     assert state.step == 20 and ckpts == [10, 20]
     losses = [m["loss"] for m in logs]
     assert all(np.isfinite(losses)) and all(np.isfinite([m["grad_norm"] for m in logs]))
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
     assert {"steps_per_sec", "clips_per_sec", "loss_main", "loss_sync"} <= set(logs[0])
     assert any(not torch.equal(v, ema0[k]) for k, v in state.ema.items())
-    val = TT.run_validation(bundle, _synthetic_batches(bundle.latent_shapes, 3), n_batches=2)
-    again = TT.run_validation(bundle, _synthetic_batches(bundle.latent_shapes, 3), n_batches=2)
     assert val == again and all(np.isfinite(list(val.values())))
     assert bundle.model.training
 
