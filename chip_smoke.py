@@ -6,8 +6,8 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — the card (nvidia-smi name, power limit), torch and CUDA versions;
   2. build   — nvcc builds multimodal_diffusion_torch/csrc/flash_fwd.cu,
-               csrc/flash_bwd.cu and csrc/rms_norm.cu, one nvcc each, started
-               together; their
+               csrc/flash_bwd.cu, csrc/rms_norm.cu and csrc/qk_norm_rope.cu,
+               one nvcc each, started together; their
                registers and spills, and the bf16 kernels' shared memory per
                block and blocks per SM;
   3. kernel  — the timing method's floor (the device time it reads for the
@@ -38,7 +38,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                no TPU counterpart) at the samplers' [16, 133, 512] and
                [16, 421, 1024], bf16: within one bf16 ulp of its plain
                version, bit-identical repeats, timed beside the plain
-               version and its bound (bytes);
+               version and its bound (bytes); then FLUX.1's QK-norm + RoPE
+               kernel (csrc/qk_norm_rope.cu, no TPU counterpart) at
+               [1, 4608, 24, 128] on a single block's linear1 view and on a
+               double block's txt and img streams into one joint buffer:
+               within one bf16 ulp of the plain chain (plus 2^-20 of a
+               pair's magnitude where the rotation cancels), bit-identical
+               repeats, timed beside the plain chain and its bound (bytes);
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -776,6 +782,90 @@ def rms_norm_phase(rn, cycles_per_s):
             "dtype": "bfloat16", "max_ulps": ulps, "repeat_bit_identical": True, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "bound_share": bound_ms / ms}
+        emit(rec)
+    return results
+
+
+def qk_norm_rope_phase(cycles_per_s):
+    """FLUX.1's QK-norm + RoPE kernel at FLUX.1-dev's shapes, 512 text
+    tokens and a 64 x 64 patch grid (N = 4608, 24 heads of 128), bf16
+    scales and the tokens' RoPE tables: a single block's q and k read in
+    place from linear1's bf16 output [1, 4608, 21504] (one launch), and a
+    double block's txt [1, 512, 9216] and img [1, 4096, 9216] projections
+    written into one joint pair of buffers at rows 0 and 512 (two launches).
+    Against the plain chain (``flux.plain_roped_qk``): each output within
+    one bf16 ulp plus 2^-20 of its pair's magnitude |y0| + |y1| (only where
+    the rotation cancels do the rsqrt's fp32 ulp and the terms' roundings
+    show past the ulp), each stream's zero rows of q and k exactly zero at
+    their joint rows, two calls bit-identical; timed beside the plain chain
+    and the bound (q and k read once, written once, the tables and scales
+    read once, over 3.35 TB/s). Returns {case: record}."""
+    import torch
+
+    from multimodal_diffusion_torch.infer.sample_flux import position_ids
+    from multimodal_diffusion_torch.models import flux
+
+    dev, bf16, H, N = torch.device("cuda"), torch.bfloat16, 24, 4608
+    g = torch.Generator(device=dev).manual_seed(81)
+    img_ids, txt_ids = position_ids(512, 64, 64, dev)
+    pe = flux.rope_tables(torch.cat((txt_ids, img_ids)), (16, 56, 56), 10_000.0)
+
+    def norm():
+        qk = flux.QKNorm(128).to(dev)
+        with torch.no_grad():
+            for p in qk.parameters():
+                p.copy_(1.0 + 0.05 * torch.randn(128, generator=g, device=dev))
+        return qk.to(bf16)
+
+    def proj(n, width):
+        x = (2.0 * torch.randn(1, n, width, generator=g, device=dev)).to(bf16)
+        x[0, 0, :6144] = 0.0  # the stream's first token: a zero row of q and of k
+        return x[..., :3 * 3072]
+
+    cases = {"flux_single_block": [(proj(N, 3 * 3072 + 12288), norm())],
+             "flux_double_block": [(proj(512, 3 * 3072), norm()),
+                                   (proj(4096, 3 * 3072), norm())]}
+    results = {}
+    for name, streams in cases.items():
+        offsets = [0, *torch.tensor([qkv.shape[1] for qkv, _ in streams]).cumsum(0).tolist()]
+        with torch.inference_mode():
+            got = flux.roped_qk(streams, H, pe)
+            again = flux.roped_qk(streams, H, pe)
+            want = flux.plain_roped_qk(streams, H, pe)
+            past_tol, past_ulp = 0, 0
+            for which in (0, 1):
+                ys = []
+                for qkv, qk in streams:
+                    t = flux.split_heads(qkv, H)[which]
+                    ys.append((qk.query_norm if which == 0 else qk.key_norm)(t))
+                pair = torch.cat(ys, 2).unflatten(-1, (-1, 2)).abs().sum(-1, keepdim=True)
+                magnitude = pair.expand(*pair.shape[:-1], 2).flatten(-2)
+                gf, wf = got[which].float(), want[which].float()
+                mantissa, exponent = torch.frexp(torch.maximum(gf.abs(), wf.abs()))
+                ulp = torch.where(mantissa == 0, 0.0,
+                                  torch.ldexp(torch.ones_like(gf), exponent - 8))
+                err = (gf - wf).abs()
+                past_tol += int((err > ulp + 2.0 ** -20 * magnitude).sum())
+                past_ulp += int((err > ulp).sum())
+            torch.cuda.synchronize()
+            zero_rows = all(bool((t[0, :, row] == 0).all()) for t in got for row in offsets[:-1])
+            if past_tol or any(not torch.equal(a, b) for a, b in zip(got, again)) \
+                    or not zero_rows:
+                raise AssertionError(f"qk_norm_rope {name}: {past_tol} elements past the "
+                                     f"tolerance from the plain chain, or repeats or a zero "
+                                     f"row differ")
+            ms = cuda_median_ms(lambda: flux.roped_qk(streams, H, pe), cycles_per_s)
+            plain_ms = cuda_median_ms(lambda: flux.plain_roped_qk(streams, H, pe),
+                                      cycles_per_s)
+        nbytes = 2 * 2 * got[0].numel() * 2 + 2 * pe[0].numel() * 4 + len(streams) * 2 * 128 * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = rec = {
+            "phase": "kernel", "kernel": "qk_norm_rope", "case": name,
+            "shape": [1, N, H, 128], "streams": [list(qkv.shape) for qkv, _ in streams],
+            "launches": len(streams), "dtype": "bfloat16", "elements_past_tolerance": past_tol,
+            "elements_past_one_ulp": past_ulp, "elements": 2 * got[0].numel(),
+            "repeat_bit_identical": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": bound_ms / ms}
         emit(rec)
     return results
 
@@ -3772,6 +3862,7 @@ def main(argv=None) -> int:
 
     cases = kernel_phase(fa)
     norm_cases = rms_norm_phase(rn, spin_cycles_per_s())
+    qk_cases = qk_norm_rope_phase(spin_cycles_per_s())
     text_cases = text_family_kernel_cases(fa, spin_cycles_per_s())
     pixel_cases = pixel_kernel_cases(fa, spin_cycles_per_s())
     by_path = {"v2a": {"flash_fwd": v2a_phase(fa)}}
@@ -3868,6 +3959,16 @@ def main(argv=None) -> int:
                                                           "bound_by")},
         "flagship": {key: flag[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
                                                  "bound_by")}})
+    kernels.append({
+        "name": "qk_norm_rope", "route": "cuda",
+        "source": "multimodal_diffusion_torch/csrc/qk_norm_rope.cu", "replaces": None,
+        "elements_past_tolerance": sum(rec["elements_past_tolerance"]
+                                       for rec in qk_cases.values()),
+        "elements_past_one_ulp": sum(rec["elements_past_one_ulp"] for rec in qk_cases.values()),
+        **{key: qk_cases["flux_single_block"][key] for key in ("shape", "ms", "plain_ms",
+                                                               "bound_ms", "bound_by")},
+        "double_block": {key: qk_cases["flux_double_block"][key]
+                         for key in ("streams", "ms", "plain_ms", "bound_ms", "bound_by")}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

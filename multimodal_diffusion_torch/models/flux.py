@@ -30,7 +30,12 @@ keeps its streams in the weights' bf16), and the projections take bf16
 operands through ``HotDense``; QK-norm's output goes to RoPE in float32
 before one rounding to bf16 (the source rounds after the norm too); the
 RoPE angles are computed in float64 from float64 positions (the source
-mixes a float32 position with float64 frequencies). The attention runs
+mixes a float32 position with float64 frequencies). On the card, without a
+gradient, the QK-norm, RoPE and that rounding of q and k are one
+hand-written kernel (``ops/qk_norm_rope.py``) that writes the joint
+sequence's q and k in place of their concatenation (``roped_qk``); it takes
+the bf16 of FLUX.1 as served, and refuses another precision on the card.
+The CPU and autograd run the plain chain (``plain_roped_qk``). The attention runs
 through ``ops/attention.py::multi_head_attention``: the hand-written flash
 forward on the card, the dense path on the CPU.
 
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..ops.qk_norm_rope import qk_norm_rope
 from ..utils.profiling import span
 from .mmdit import HotDense
 
@@ -186,13 +192,55 @@ def split_heads(qkv: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, ...]:
     return qkv.view(B, N, 3, n_heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def joint_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pe: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """RoPE on q and k (float32, [B, H, N, Dh]), then attention in v's dtype
-    through ``multi_head_attention``; returns [B, N, H Dh]."""
+Stream = Tuple[torch.Tensor, QKNorm]  # a stream's qkv projection [B, n, 3 d] and its QK-norm
+
+
+def plain_roped_qk(streams: Sequence[Stream], n_heads: int,
+                   pe: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain chain of ``roped_qk``: each stream's q and k through its
+    RMSNorm modules (float32), concatenated in the streams' order, then
+    ``apply_rope`` and one rounding to the qkv's dtype."""
+    qs, ks = [], []
+    for qkv, norm in streams:
+        q, k, _ = split_heads(qkv, n_heads)
+        qs.append(norm.query_norm(q))
+        ks.append(norm.key_norm(k))
+    q, k = (t[0] if len(t) == 1 else torch.cat(t, 2) for t in (qs, ks))
     cos, sin = pe
-    q = apply_rope(q, cos, sin).to(v.dtype)
-    k = apply_rope(k, cos, sin).to(v.dtype)
+    dtype = streams[0][0].dtype
+    return apply_rope(q, cos, sin).to(dtype), apply_rope(k, cos, sin).to(dtype)
+
+
+def roped_qk(streams: Sequence[Stream], n_heads: int,
+             pe: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k of the joint sequence, each [B, H, N, Dh] in the qkv's dtype,
+    from each stream's (qkv, QK-norm) in the sequence's order (a double
+    block's txt then img, or a single block's one stream): per-head RMSNorm,
+    RoPE at the joint positions, one rounding. A CUDA qkv that needs no
+    gradient takes the kernel (``ops/qk_norm_rope.py``), one launch a stream
+    into one joint q and one joint k buffer, and the kernel takes FLUX.1 as
+    served, bf16 qkv and scales: on the card, another precision raises
+    without a gradient. CPU tensors and autograd take the plain chain."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for qkv, norm in streams
+        for t in (qkv, norm.query_norm.scale, norm.key_norm.scale))
+    if not streams[0][0].is_cuda or needs_grad:
+        return plain_roped_qk(streams, n_heads, pe)
+    cos, sin = pe
+    out, offset = None, 0
+    for qkv, norm in streams:
+        out = qk_norm_rope(qkv, norm.query_norm.scale, norm.key_norm.scale, cos, sin, offset,
+                           out)
+        offset += qkv.shape[1]
+    if offset != cos.shape[0]:  # rows no stream wrote would go to attention unset
+        raise ValueError(f"roped_qk: the streams hold {offset} tokens, the RoPE tables "
+                         f"{cos.shape[0]}")
+    return out
+
+
+def joint_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention over the roped q, k and v ([B, H, N, Dh], one dtype)
+    through ``multi_head_attention``; returns [B, N, H Dh]."""
     out = multi_head_attention(q, k, v)
     B, H, N, Dh = out.shape
     return out.transpose(1, 2).reshape(B, N, H * Dh)
@@ -220,19 +268,16 @@ class DoubleStreamBlock(nn.Module):
             setattr(self, f"{s}_attn", SelfAttention(d, c.num_heads, c.qkv_bias, c.dtype))
             setattr(self, f"{s}_mlp", mlp(d, hidden, c.dtype))
 
-    def _qkv(self, stream: str, x: torch.Tensor, shift, scale):
-        attn = getattr(self, f"{stream}_attn")
-        q, k, v = split_heads(attn.qkv(modulate(x, shift, scale)), self.n_heads)
-        return attn.norm.query_norm(q), attn.norm.key_norm(k), v
-
     def forward(self, img: torch.Tensor, txt: torch.Tensor, vec: torch.Tensor,
                 pe: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         im, tm = self.img_mod(vec), self.txt_mod(vec)
         i1, i2, t1, t2 = im[:3], im[3:], tm[:3], tm[3:]
-        iq, ik, iv = self._qkv("img", img, i1[0], i1[1])
-        tq, tk, tv = self._qkv("txt", txt, t1[0], t1[1])
-        attn = joint_attention(torch.cat((tq, iq), 2), torch.cat((tk, ik), 2),
-                               torch.cat((tv, iv), 2), pe)
+        iqkv = self.img_attn.qkv(modulate(img, i1[0], i1[1]))
+        tqkv = self.txt_attn.qkv(modulate(txt, t1[0], t1[1]))
+        q, k = roped_qk([(tqkv, self.txt_attn.norm), (iqkv, self.img_attn.norm)],
+                        self.n_heads, pe)
+        v = torch.cat((split_heads(tqkv, self.n_heads)[2], split_heads(iqkv, self.n_heads)[2]), 2)
+        attn = joint_attention(q, k, v)
         L = txt.shape[1]
         img = img + i1[2] * self.img_attn.proj(attn[:, L:]).float()
         img = img + i2[2] * self.img_mlp(modulate(img, i2[0], i2[1])).float()
@@ -255,8 +300,8 @@ class SingleStreamBlock(nn.Module):
                 pe: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
         shift, scale, gate = self.modulation(vec)
         qkv, h = self.linear1(modulate(x, shift, scale)).split([3 * self.d, self.hidden], -1)
-        q, k, v = split_heads(qkv, self.n_heads)
-        attn = joint_attention(self.norm.query_norm(q), self.norm.key_norm(k), v, pe)
+        q, k = roped_qk([(qkv, self.norm)], self.n_heads, pe)
+        attn = joint_attention(q, k, split_heads(qkv, self.n_heads)[2])
         act = F.gelu(h.float(), approximate="tanh").to(attn.dtype)
         return x + gate * self.linear2(torch.cat((attn, act), 2)).float()
 

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels' plumbing, shared by the op modules that
-bind them (``flash_attention.py``, ``rms_norm.py``): the nvcc build of each
-source of ``SOURCES`` for ``sm_90a`` at first use into ``BUILD_DIR`` (in
-.gitignore), keyed by the content of the source and of the headers beside
+bind them (``flash_attention.py``, ``rms_norm.py``, ``qk_norm_rope.py``):
+the nvcc build of each source of ``SOURCES`` for ``sm_90a`` at first use
+into ``BUILD_DIR`` (in .gitignore), keyed by the content of the source and of the headers beside
 it; the ctypes loader, to which an op module hands a ``declare`` that types
 its own entry points; the 16-byte alignment rule of the kernels' vector
 copies; and ``LAUNCHES``, kernel executions by name. A wrapper adds one a
@@ -24,7 +24,8 @@ from typing import Callable, Optional
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "rms_norm")}
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("flash_fwd", "flash_bwd", "rms_norm", "qk_norm_rope")}
 BUILD_DIR = _PKG / "_build"
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
