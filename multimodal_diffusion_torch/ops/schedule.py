@@ -22,10 +22,15 @@ def make_beta_schedule(
 ) -> np.ndarray:
     """Return betas[t], t = 0..steps-1, as fp32 numpy.
 
-    kinds: "cosine" (Nichol-Dhariwal, s=0.008), "linear", "sigmoid".
+    kinds: "cosine" (Nichol-Dhariwal, s=0.008), "linear", "sigmoid",
+    "scaled_linear" (Stable Diffusion's: linspace(sqrt(min_beta),
+    sqrt(max_beta), steps)^2, taken in float64).
     """
     kind = kind.lower()
-    if kind == "linear":
+    if kind == "scaled_linear":
+        betas = (np.linspace(math.sqrt(min_beta), math.sqrt(max_beta), steps,
+                             dtype=np.float64) ** 2).astype(np.float32)
+    elif kind == "linear":
         betas = np.linspace(min_beta, max_beta, steps, dtype=np.float32)
     elif kind == "sigmoid":
         xs = np.linspace(-6.0, 6.0, steps, dtype=np.float32)
@@ -49,8 +54,30 @@ def alphas_cumprod_from_betas(betas: np.ndarray) -> Tuple[np.ndarray, np.ndarray
     return alphas, np.cumprod(alphas, axis=0).astype(np.float32)
 
 
-def make_sampling_schedule(T_train: int, T_sample: int) -> np.ndarray:
-    """Decreasing int schedule of length T_sample+1 from T_train-1 down to -1."""
+def rescale_zero_terminal_snr(alpha_bar: np.ndarray) -> np.ndarray:
+    """alpha_bar rescaled so the last step has zero SNR (Lin et al. 2024,
+    "Common Diffusion Noise Schedules and Sample Steps are Flawed",
+    Algorithm 1): sqrt(alpha_bar) shifted so its last value is 0 and scaled
+    so its first is unchanged, then squared. Taken in float64; returns
+    float32 with alpha_bar[-1] exactly 0."""
+    s = np.sqrt(np.asarray(alpha_bar, dtype=np.float64))
+    s0, sT = s[0], s[-1]
+    s = (s - sT) * (s0 / (s0 - sT))
+    return (s ** 2).astype(np.float32)
+
+
+def make_sampling_schedule(T_train: int, T_sample: int,
+                           spacing: str = "linspace") -> np.ndarray:
+    """Decreasing int schedule of length T_sample+1 from the first step down
+    to -1. "linspace": round(linspace(T_train-1, -1, T_sample+1)).
+    "trailing" (Lin et al. 2024, section 3.3): round(arange(T_train, 0,
+    -T_train / T_sample)) - 1 then -1, so the first step is T_train-1 (999,
+    979, ..., 19, -1 for 1000 and 50)."""
+    if spacing == "trailing":
+        ts = np.round(np.arange(T_train, 0, -T_train / T_sample)).astype(np.int64) - 1
+        return np.concatenate([ts, [-1]]).astype(np.int32)
+    if spacing != "linspace":
+        raise ValueError(f"spacing must be 'linspace' or 'trailing', got {spacing!r}")
     grid = np.linspace(T_train - 1, -1, T_sample + 1)
     return np.round(grid).astype(np.int32)
 

@@ -79,10 +79,16 @@ class WorkItem:
 
 @dataclass
 class Request:
+    """A request: its prompt read from ``input_path`` (a frames directory or a
+    wav), or handed in as ``prompt`` (uint8 frames [T, H, W, 3] or a float32
+    waveform [L], already at the config's size and rate); its output written
+    to ``output_path``, or, without one, kept in ``items``' ``out``."""
+
     id: str
     direction: str  # "v2a" | "a2v" | "stream_v2a" | "stream_a2v"
-    input_path: str
-    output_path: str
+    input_path: Optional[str] = None
+    output_path: Optional[str] = None
+    prompt: Optional[np.ndarray] = None
     error: Optional[str] = None
     done: threading.Event = field(default_factory=threading.Event)
     items: List[WorkItem] = field(default_factory=list)  # set by submit
@@ -289,46 +295,49 @@ class InferenceRunner:
 
     # ---------------- request preparation / finalization ----------------
 
-    def _load_video_prompt(self, path: str, n_frames: int) -> np.ndarray:
+    def _load_video_prompt(self, req: Request, n_frames: int) -> np.ndarray:
         from ..media.video_io import load_frames_dir
 
-        fr = load_frames_dir(Path(path), size_hw=self.size_hw)
+        fr = (np.asarray(req.prompt, np.uint8) if req.prompt is not None
+              else load_frames_dir(Path(req.input_path), size_hw=self.size_hw))
         if fr.shape[0] < n_frames:
             fr = np.concatenate([fr, np.repeat(fr[-1:], n_frames - fr.shape[0], 0)])
         return fr
 
-    def _load_audio_prompt(self, path: str, n_samples: int) -> np.ndarray:
+    def _load_audio_prompt(self, req: Request, n_samples: int) -> np.ndarray:
         from ..media.audio_io import read_wav
 
-        y, _ = read_wav(Path(path), sr=self.sr)
+        y = (np.asarray(req.prompt, np.float32) if req.prompt is not None
+             else read_wav(Path(req.input_path), sr=self.sr)[0])
         if y.shape[0] < n_samples:
             y = np.concatenate([y, np.zeros(n_samples - len(y), np.float32)])
         return y
 
     def _prepare(self, req: Request) -> List[WorkItem]:
-        """Load the request's prompt and cut it into work items (one for a
-        clip request, one per window for a stream)."""
+        """Load the request's prompt (or take the one handed in) and cut it
+        into work items (one for a clip request, one per window for a
+        stream)."""
         from ..infer.stream_infer import split_audio_into_windows, split_frames_into_windows
 
         clip_s = float(self.cfg["data"]["clip_seconds"])
         if req.direction == "v2a":
             T = int(round(self.fps * clip_s))
-            return [WorkItem("v2a", self._load_video_prompt(req.input_path, T)[:T])]
+            return [WorkItem("v2a", self._load_video_prompt(req, T)[:T])]
         if req.direction == "a2v":
             L = int(round(self.sr * clip_s))
-            return [WorkItem("a2v", self._load_audio_prompt(req.input_path, L)[:L])]
+            return [WorkItem("a2v", self._load_audio_prompt(req, L)[:L])]
         if req.direction == "stream_v2a":
-            frames = self._load_video_prompt(req.input_path, int(round(self.fps * self.win_s)))
+            frames = self._load_video_prompt(req, int(round(self.fps * self.win_s)))
             chunks, _, _ = split_frames_into_windows(frames, self.fps, self.win_s, self.hop_s)
             return [WorkItem("v2a", c) for c in chunks]
-        wav = self._load_audio_prompt(req.input_path, int(round(self.sr * self.win_s)))
+        wav = self._load_audio_prompt(req, int(round(self.sr * self.win_s)))
         chunks, _, _ = split_audio_into_windows(wav, self.sr, self.win_s, self.hop_s)
         return [WorkItem("a2v", c) for c in chunks]
 
     def _finalize(self, req: Request, items: List[WorkItem]):
-        """Wait for the request's items, stitch a stream, write the output.
-        Runs on a thread of its own per request, so IO never occupies the
-        scheduler thread."""
+        """Wait for the request's items, stitch a stream, write the output
+        (none without an ``output_path``). Runs on a thread of its own per
+        request, so IO never occupies the scheduler thread."""
         from ..infer.stream_infer import crossfade_audio, crossfade_video
         from ..media.audio_io import write_wav
         from ..media.video_io import write_frames
@@ -338,6 +347,9 @@ class InferenceRunner:
         errs = [it.error for it in items if it.error]
         if errs:
             req.error = errs[0]
+            req.done.set()
+            return
+        if req.output_path is None:  # the outputs stay in the items
             req.done.set()
             return
         try:
