@@ -9,7 +9,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                csrc/flash_bwd.cu, csrc/rms_norm.cu and csrc/qk_norm_rope.cu,
                one nvcc each, started together; their
                registers and spills, and the bf16 kernels' shared memory per
-               block and blocks per SM;
+               block and blocks per SM; the warp-specialised forward's own
+               registers, spills and shared memory, and any serialised-wgmma
+               report (C7515, C7513) of the build;
   3. kernel  — the timing method's floor (the device time it reads for the
                smallest launches); the flash-attention forward kernel against
                its plain PyTorch version (out and lse), then the two backward
@@ -45,6 +47,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                within one bf16 ulp of the plain chain (plus 2^-20 of a
                pair's magnitude where the rotation cancels), bit-identical
                repeats, timed beside the plain chain and its bound (bytes);
+               then the warp-specialised forward (flash_fwd_ws_kernel, bf16
+               at head dim 64 from WS_MIN_KEYS keys) beside today's kernel
+               at [2, 48, N, 64] for N = 512, 768, 1024, 4096 and CogVideoX's
+               17 776: each within the bf16 tolerance of the plain version,
+               bit-identical repeats, both timed against the bound and
+               SDPA's forward; no later phase may launch it;
   4. v2a     — sampling at mvp full width through the public entry point
                (build_components + sample_one_direction): B=8 clips, 50 DDIM
                steps with batched CFG, seeded N(0, 0.02) weights, bf16 compute;
@@ -870,6 +878,92 @@ def qk_norm_rope_phase(cycles_per_s):
     return results
 
 
+# [2, 48, N, 64]: CogVideoX-5B's CFG batch of 48 heads at its N = 17 776, and
+# shorter N around ops/flash_attention.py::WS_MIN_KEYS
+WS_N = (512, 768, 1024, 4096, 17776)
+
+
+def flash_fwd_ws_phase(fa, cycles_per_s):
+    """The warp-specialised forward beside today's kernel on the same
+    operands (bf16, every key valid): each within TOL of the plain version,
+    out's as a share of max |plain out| (a typical |out| is about
+    (N / e)^-1/2, 0.012 at N = 17 776, below TOL's 2e-2 absolute), two calls
+    bit-identical, both timed beside SDPA's forward (a yardstick) and the
+    bound. "picked" is what flash_forward launches at the shape.
+    Returns {N: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    dev, tol = torch.device("cuda"), TOL["bfloat16"]
+    results = {}
+    for N in WS_N:
+        shape = (2, 48, N, 64)
+        g = torch.Generator(device=dev).manual_seed(90 + N)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v)
+        ref_max = float(ref_out.float().abs().max())
+        out_tol = tol["out"] * ref_max
+        rec = {"phase": "kernel", "kernel": "flash_fwd_ws", "case": f"cogvideox_heads_n{N}",
+               "shape": list(shape), "dtype": "bfloat16",
+               "picked": fa.forward_kernel(q.dtype, 64, N), "max_abs_ref_out": ref_max,
+               "out_tol": out_tol, "lse_tol": tol["lse"]}
+        ms = {}
+        for kernel in ("flash_fwd_ws", "flash_fwd"):
+            out, lse = fa.launch_forward_kernel(kernel, q, k, v, None)
+            again = fa.launch_forward_kernel(kernel, q, k, v, None)
+            torch.cuda.synchronize()
+            err_out = float((out.float() - ref_out.float()).abs().max())
+            err_lse = float((lse - ref_lse).abs().max())
+            if not (err_out <= out_tol and err_lse <= tol["lse"]):
+                raise AssertionError(f"{kernel} at {shape}: out {err_out} lse {err_lse} "
+                                     f"(tol {out_tol}, {tol['lse']})")
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"{kernel} at {shape}: two calls differ")
+            key = "" if kernel == "flash_fwd_ws" else "today_"
+            rec.update({f"{key}max_abs_err_out": err_out, f"{key}max_abs_err_lse": err_lse})
+            ms[kernel] = cuda_median_ms(
+                lambda kernel=kernel: fa.launch_forward_kernel(kernel, q, k, v, None),
+                cycles_per_s, reps=10 if N > 5000 else 30, warmup=3)
+        library_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                    cycles_per_s, reps=10 if N > 5000 else 30, warmup=3)
+        bound_ms, bound_by = attention_bound_ms(shape, "bfloat16", [N, N], False)
+        rec.update({"repeat_bit_identical": True, "ms": ms["flash_fwd_ws"],
+                    "today_ms": ms["flash_fwd"], "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / ms["flash_fwd_ws"],
+                    "today_bound_share": bound_ms / ms["flash_fwd"]})
+        emit(rec)
+        results[N] = rec
+        del q, k, v, ref_out, ref_lse, out, lse, again
+        torch.cuda.empty_cache()
+    return results
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """Of the first entry function whose name holds `kernel`, in an nvcc
+    -Xptxas -v log: registers, stack, spill stores and loads."""
+    import re
+
+    report, inside = {}, False
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            if report:
+                break
+            inside = kernel in entry.group(1)
+        if not inside:
+            continue
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads")):
+            found = re.search(pattern, line)
+            if found:
+                report[key] = int(found.group(1))
+    return report
+
+
 def v2a_phase(fa):
     import numpy as np
     import torch
@@ -1003,9 +1097,14 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """The flash kernels' executions since the last reset."""
+    """The flash kernels' executions since the last reset. No phase after the
+    kernel phase reaches the warp-specialised forward (bf16, head dim 64,
+    WS_MIN_KEYS keys or more): a launch of it since the reset raises."""
     from multimodal_diffusion_torch.ops import cuda_kernels as ck
 
+    if ck.LAUNCHES["flash_fwd_ws"]:
+        raise AssertionError(f"{ck.LAUNCHES['flash_fwd_ws']} launches of flash_fwd_ws on a "
+                             f"path that should not take it")
     return {name: ck.LAUNCHES[name] for name in FLASH_KERNELS}
 
 
@@ -3856,13 +3955,26 @@ def main(argv=None) -> int:
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         built[name] = {"library": lib.name, "ptxas": [
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}
+    occupancy = fa.forward_occupancy()
+    fwd_log = libs["flash_fwd"].with_suffix(".log")
+    fwd_log = fwd_log.read_text() if fwd_log.exists() else ""
+    ws_build = {**ptxas_report(fwd_log, "flash_fwd_ws_kernel"),
+                **occupancy["flash_fwd_ws_bf16_dh64"]}
+    serialised = [ln.strip() for name, lib in libs.items() if lib.with_suffix(".log").exists()
+                  for ln in lib.with_suffix(".log").read_text().splitlines()
+                  if "C7515" in ln or "C7513" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": built,
-          "forward_bf16_occupancy": fa.forward_occupancy(),
-          "backward_bf16_occupancy": fa.backward_occupancy()})
+          "forward_bf16_occupancy": occupancy,
+          "backward_bf16_occupancy": fa.backward_occupancy(),
+          "flash_fwd_ws": ws_build, "serialised_wgmma": serialised})
+    if ws_build.get("spill_store_bytes") or ws_build.get("spill_load_bytes") or serialised:
+        raise AssertionError(f"the forward spills or serialises its wgmma: {ws_build} "
+                             f"{serialised}")
 
     cases = kernel_phase(fa)
     norm_cases = rms_norm_phase(rn, spin_cycles_per_s())
     qk_cases = qk_norm_rope_phase(spin_cycles_per_s())
+    ws_cases = flash_fwd_ws_phase(fa, spin_cycles_per_s())
     text_cases = text_family_kernel_cases(fa, spin_cycles_per_s())
     pixel_cases = pixel_kernel_cases(fa, spin_cycles_per_s())
     by_path = {"v2a": {"flash_fwd": v2a_phase(fa)}}
@@ -3950,6 +4062,16 @@ def main(argv=None) -> int:
                                   ("pixel_train", pixel_cases["pixel_train"][kernel]),
                                   ("ring_block", rank_cases["ring_block"][kernel]),
                                   ("model2_block", rank_cases["model2_block"][kernel]))}})
+    cell = ws_cases[WS_N[-1]]
+    kernels.append({
+        "name": "flash_fwd_ws", "route": "cuda",
+        "source": "multimodal_diffusion_torch/csrc/flash_fwd.cu",
+        "replaces": "multimodal_diffusion_tpu/ops/flash_attention.py:49",
+        **{key: cell[key] for key in ("shape", "max_abs_err_out", "ms", "today_ms", "library_ms",
+                                      "bound_ms", "bound_by", "bound_share")},
+        "by_n": {N: {key: rec[key] for key in ("picked", "ms", "today_ms", "library_ms",
+                                               "bound_share")}
+                 for N, rec in ws_cases.items()}})
     flag = norm_cases["flagship_sample"]
     kernels.append({
         "name": "rms_norm", "route": "cuda",

@@ -65,6 +65,40 @@
 //     products of a stage in which other instructions write registers that a
 //     wgmma reads or accumulates into (PERF.md has the readings). The blocks
 //     an SM holds at once overlap one block's softmax with another's products.
+// bf16 at head dim 64 and long N (`flash_fwd_ws_kernel`, chosen by the
+// caller: ops/flash_attention.py::forward_kernel). At [2, 48, 17 776, 64]
+// the call is bound by operations (7.85 ms of FLOPs against 0.26 ms of
+// bytes), and so is its exp: B*H*N^2 = 3.0e10 `ex2` on the special-function
+// units take about as long as the products on the tensor cores. At Dh 64 a
+// 64-key step of the kernel above pays its fixed costs (two waits, a
+// barrier, the rescale) against half the tensor work they meet at Dh 128,
+// and its blocks overlap one's softmax with another's products only by
+// chance. This design makes the overlap its structure:
+//   * grid = (ceil(N / 192), B*H), the query tiles of a head neighbours so
+//     the blocks on the card share that head's K and V in L2; a block is
+//     four warpgroups, one block an SM. Warpgroup 0 is the producer: it gives
+//     up registers (`setmaxnreg`), and one of its warps fills a ring of 4
+//     stages of 128 keys by TMA (K and V boxes in the 128-byte swizzle that
+//     wgmma reads, one copy each; Q once) under full/empty mbarrier pairs,
+//     and writes each stage's mask bytes and an "all 128 keys attendable"
+//     byte beside it. TMA takes the [B, H, N, D] strides as given and fills
+//     rows at or past N with zeros; those rows are masked.
+//   * Three consumer warpgroups own 64 query rows each and read the same
+//     stages. A step's products are S = Q K^T over 128 keys (m64n128k16 x 4,
+//     64 fp32 registers) and O += P V of the stage before (8 register-A
+//     m64n64k16), committed as two groups. The consumers take turns issuing
+//     them (named barriers, one a consumer, in a ring), so their batches
+//     reach the tensor cores one after another while the other warpgroups
+//     run their softmax. Within a warpgroup the softmax of a stage starts when
+//     its S is in, under its own P V of the stage before, and touches only
+//     S and the row statistics; O is rescaled and P packed to bf16 after P V
+//     is waited for, between batches, as above (ptxas reports no serialised
+//     wgmma). The softmax is the kernel above's, on 128 keys; a stage whose
+//     keys are all attendable skips the sentinel and the select.
+//   * Epilogue as above, each consumer through its own tile.
+//   Measured designs (PERF.md): two consumers of 64 rows and plain order S,
+//   softmax, P V ran at 42 % of the bound; three consumers with the softmax
+//   under the warpgroup's own P V at 50 %.
 // fp32 keeps the FMA kernel below (`flash_fwd_kernel`): tensor cores take
 // fp32 only as TF32, about three decimal digits, which the 1e-4 tolerance
 // forbids. It stages fp32 tiles in shared memory (64 keys for Dh <= 64, 32
@@ -73,12 +107,13 @@
 // cg+8, ...; S and PV are register-tiled FMA loops, the row max and sum are
 // reduced over the 8 lanes of a row group with shuffles, and P goes through
 // shared memory to the PV loop.
-// Both kernels mask the ragged edge themselves (no host padding), take the
+// All three kernels mask the ragged edge themselves (no host padding), take the
 // optional key-validity mask as one byte per key, [B, N] (1 = attendable),
 // shared by all heads, and take [B, H, N, Dh] inputs with any batch/head/row
 // strides and unit stride along Dh; the output takes strides too, so the
 // caller can hand in a [B, N, H, Dh] buffer and skip a transpose.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -472,6 +507,321 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(const Params p
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at long N: a TMA producer warp and three consumer warpgroups
+// ---------------------------------------------------------------------------
+
+// mbarriers in shared memory (addresses in the shared window)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// the bytes of asynchronous copies the barrier's current phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a [64 columns, rows] box of a [B, H, N, 64] tensor into shared memory, its
+// bytes completing on the barrier; coordinates innermost first
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+// named barriers 1 .. 3 order the consumers' product batches (0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+constexpr int WS_D = 64;            // head dim: a row is one 128-byte swizzle row and one TMA box
+constexpr int WS_ROWS = 64;         // query rows of a consumer warpgroup
+constexpr int WS_KEYS = 128;        // keys a stage
+constexpr int WS_CONSUMERS = 3;     // consumer warpgroups: a block owns 192 query rows
+constexpr int WS_THREADS = (1 + WS_CONSUMERS) * 128;  // the producer warpgroup, then the consumers
+// the block's 512 x 128 registers, moved from the producer to the consumers
+constexpr int WS_PRODUCER_REGS = 32;
+constexpr int WS_CONSUMER_REGS = 160;
+static_assert(128 * (WS_PRODUCER_REGS + WS_CONSUMERS * WS_CONSUMER_REGS) <= 65536, "registers");
+// a stage's mask bytes, then its "all attendable" byte
+constexpr int WS_MASK_STRIDE = WS_KEYS + 16;
+
+struct WsTile {
+  static constexpr int STAGES = 4;  // K and V stages in the ring
+  static constexpr int Q_BYTES = WS_CONSUMERS * WS_ROWS * WS_D * 2;
+  static constexpr int KV_BYTES = WS_KEYS * WS_D * 2;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K, then V
+  static constexpr int OUT = Q_BYTES + STAGES * STAGE_BYTES;  // the consumers' out tiles
+  static constexpr int MASK = OUT + WS_CONSUMERS * flash::OutTile<WS_D>::BYTES;
+  static constexpr int BARS = MASK + STAGES * WS_MASK_STRIDE;  // full, empty, then Q's
+  static constexpr size_t SMEM_BYTES = 1024 + BARS + (2 * STAGES + 1) * 8;
+  static_assert(BARS % 8 == 0 && SMEM_BYTES <= 232448, "shared memory");
+};
+
+// The online softmax of one stage on a consumer's S registers (64 rows x 128
+// keys; register 4 j + e is key 8 j + 2 tq + e % 2 of row lo, e < 2, or hi),
+// as flash_fwd_wgmma_kernel's on 64 keys: P = 2^(c s - c m) in place, m and l
+// carried, and alpha = 2^(c m_old - c m_new) for o. MASKED takes the sentinel
+// and the select on each key; a stage whose 128 keys are all attendable
+// takes neither.
+template <bool MASKED>
+__device__ __forceinline__ void ws_scores(float (&s)[2 * WS_KEYS / 4], float& m_lo, float& m_hi,
+                                          float& l_lo, float& l_hi, float& alpha_lo,
+                                          float& alpha_hi, float c, const uint8_t* ok, int tq) {
+  using flash::select_bits;
+  // -1 where key 8 j + 2 tq + e % 2 may be attended, 0 where not
+  auto keep = [&](int j, int e) {
+    const uchar2 ok2 = *reinterpret_cast<const uchar2*>(ok + 8 * j + 2 * tq);
+    return -(int)((e & 1) ? ok2.y : ok2.x);
+  };
+  float mt_lo = NEG_SENTINEL, mt_hi = NEG_SENTINEL;
+#pragma unroll
+  for (int j = 0; j < WS_KEYS / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      if (MASKED) s[4 * j + e] = x = select_bits(x, NEG_SENTINEL, keep(j, e));
+      if (e & 2) mt_hi = fmaxf(mt_hi, x);
+      else mt_lo = fmaxf(mt_lo, x);
+    }
+  }
+  const float mn_lo = fmaxf(m_lo, quad_max(mt_lo)), mn_hi = fmaxf(m_hi, quad_max(mt_hi));
+  alpha_lo = exp2_approx(c * (m_lo - mn_lo));
+  alpha_hi = exp2_approx(c * (m_hi - mn_hi));
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  const float mc_lo = c * mn_lo, mc_hi = c * mn_hi;
+  float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < WS_KEYS / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pij = exp2_approx(fmaf(s[4 * j + e], c, (e & 2) ? -mc_hi : -mc_lo));
+      if (MASKED) pij = select_bits(pij, keep(j, e));
+      s[4 * j + e] = pij;
+      if (e & 2) rs_hi += pij;
+      else rs_lo += pij;
+    }
+  }
+  l_lo = l_lo * alpha_lo + rs_lo;
+  l_hi = l_hi * alpha_hi + rs_hi;
+}
+
+// P rounded to bf16 into the register-A fragments of P V, and o rescaled
+__device__ __forceinline__ void ws_pack(const float (&s)[2 * WS_KEYS / 4],
+                                        uint32_t (&pa)[WS_KEYS / 16][4],
+                                        float (&o)[WS_D / 2], float alpha_lo, float alpha_hi) {
+#pragma unroll
+  for (int kk = 0; kk < WS_KEYS / 16; ++kk) flash::acc_to_a(pa[kk], &s[8 * kk]);
+#pragma unroll
+  for (int j = 0; j < WS_D / 8; ++j) {
+    o[4 * j] *= alpha_lo;
+    o[4 * j + 1] *= alpha_lo;
+    o[4 * j + 2] *= alpha_hi;
+    o[4 * j + 3] *= alpha_hi;
+  }
+}
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using namespace flash;
+  using TL = WsTile;
+  constexpr int D = WS_D;
+  using L = Swizzled<D>;
+  constexpr int STAGES = TL::STAGES;
+  extern __shared__ unsigned char smem_ws[];
+  unsigned char* smem = align_1024(smem_ws);
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sKV = sQ + TL::Q_BYTES;
+  uint8_t* sOk = smem + TL::MASK;
+  const uint32_t bars = smem_addr(smem + TL::BARS);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
+  const uint32_t q_bar = bars + 8 * 2 * STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int m0 = blockIdx.x * WS_CONSUMERS * WS_ROWS;
+  const int N = p.N;
+  const int n_stages = (N + WS_KEYS - 1) / WS_KEYS;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 32);   // the producer warp's lanes, each after its mask bytes
+      mbar_init(empty(st), 128 * WS_CONSUMERS);  // every consumer thread, after its last read
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one warp fills the ring, the others leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WS_PRODUCER_REGS));
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, TL::Q_BYTES);
+      tma_load(sQ, &map_q, q_bar, 0, m0, h, b);
+      mbar_arrive(q_bar);
+    }
+    for (int t = 0; t < n_stages; ++t) {
+      const int st = t % STAGES;
+      // the first round finds every stage empty
+      mbar_wait(empty(st), ((t / STAGES) & 1) ^ 1);
+      const int n0 = t * WS_KEYS;
+      if (lane == 0) {
+        mbar_expect_tx(full(st), TL::STAGE_BYTES);
+        const uint32_t dst = sKV + st * TL::STAGE_BYTES;
+        tma_load(dst, &map_k, full(st), 0, n0, h, b);
+        tma_load(dst + TL::KV_BYTES, &map_v, full(st), 0, n0, h, b);
+      }
+      // the stage's mask bytes (rows at or past N are masked: TMA filled them
+      // with zeros), 4 a lane, while the copies are in flight
+      uint32_t word = 0;
+      bool all = true;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = key_ok(p, b, n0 + 4 * lane + e);
+        word |= (uint32_t)ok << (8 * e);
+        all = all && ok;
+      }
+      uint8_t* ok_bytes = sOk + st * WS_MASK_STRIDE;
+      *reinterpret_cast<uint32_t*>(ok_bytes + 4 * lane) = word;
+      all = __all_sync(0xffffffffu, all);
+      if (lane == 0) ok_bytes[WS_KEYS] = all;
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // a consumer: 64 query rows against every stage of keys
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WS_CONSUMER_REGS));
+  const int cw = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // this warpgroup's rows of the Q tile
+  const uint32_t myQ = sQ + cw * WS_ROWS * L::ROW_BYTES;
+  // The consumers take turns at the tensor cores, in a ring: each batch of
+  // products is issued between a wait on this warpgroup's barrier and an
+  // arrival at the next one's. Consumer 0 is let through its first wait by
+  // its own arrival; the last consumer skips its last arrival, which nothing
+  // waits for.
+  const int bar_mine = 1 + cw, bar_next = 1 + (cw + 1) % WS_CONSUMERS;
+  if (cw == 0) named_arrive(bar_mine, 256);
+
+  const float c = p.scale * 1.4426950408889634f;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[2 * WS_KEYS / 4];
+  uint32_t pa[WS_KEYS / 16][4];
+  float m_lo = NEG_SENTINEL, m_hi = NEG_SENTINEL, l_lo = 0.f, l_hi = 0.f;
+  float alpha_lo, alpha_hi;
+
+  auto issue_s = [&](int st) {
+    const uint32_t tK = sKV + st * TL::STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, L::template desc_k_major<WS_CONSUMERS * WS_ROWS>(myQ, kk),
+               L::template desc_k_major<WS_KEYS>(tK, kk), kk > 0);
+  };
+  auto issue_pv = [&](int st) {
+    const uint32_t tV = sKV + st * TL::STAGE_BYTES + TL::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < WS_KEYS / 16; ++kk)
+      wgmma_rs(o, pa[kk], L::template desc_mn_major<WS_KEYS>(tV, kk));
+  };
+  auto scores = [&](int st) {
+    const uint8_t* ok = sOk + st * WS_MASK_STRIDE;
+    if (ok[WS_KEYS]) ws_scores<false>(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, c, ok, tq);
+    else ws_scores<true>(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, c, ok, tq);
+  };
+
+  mbar_wait(q_bar, 0);
+  mbar_wait(full(0), 0);
+  named_sync(bar_mine, 256);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  named_arrive(bar_next, 256);
+  wgmma_wait();
+  wgmma_pin(s);
+  scores(0);
+  ws_pack(s, pa, o, alpha_lo, alpha_hi);
+  // Step t: S of stage t and P V of stage t - 1, committed as two groups in
+  // one turn. Stage t's softmax starts once S is in and runs under P V (it
+  // touches only s, m and l); then P V is waited for, stage t - 1 released,
+  // and P packed and o rescaled between batches, as in flash_fwd_wgmma_kernel.
+  for (int t = 1; t < n_stages; ++t) {
+    const int st = t % STAGES, prev = (t - 1) % STAGES;
+    mbar_wait(full(st), (t / STAGES) & 1);
+    named_sync(bar_mine, 256);
+    wgmma_fence();
+    issue_s(st);
+    wgmma_commit();
+    issue_pv(prev);
+    wgmma_commit();
+    named_arrive(bar_next, 256);
+    wgmma_wait<1>();
+    wgmma_pin(s);
+    scores(st);
+    wgmma_wait<0>();
+    wgmma_pin(o);
+    mbar_arrive(empty(prev));
+    ws_pack(s, pa, o, alpha_lo, alpha_hi);
+  }
+  named_sync(bar_mine, 256);
+  wgmma_fence();
+  issue_pv((n_stages - 1) % STAGES);
+  wgmma_commit();
+  if (cw != WS_CONSUMERS - 1) named_arrive(bar_next, 256);
+  wgmma_wait();
+  wgmma_pin(o);
+
+  // out through this warpgroup's own tile, each warp its 16 rows
+  const float ls_lo = fmaxf(quad_sum(l_lo), 1e-30f), ls_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+  bf16* out_tile = reinterpret_cast<bf16*>(smem + TL::OUT + cw * OutTile<D>::BYTES);
+  store_acc_to_tile<D>(out_tile, o, 1.f / ls_lo, 1.f / ls_hi, warp, lane);
+  __syncwarp();
+  const int r0 = m0 + cw * WS_ROWS + 16 * warp;
+  copy_rows_out<D>(static_cast<bf16*>(p.out) + b * p.o_sb + h * p.o_sh, p.o_sn, out_tile, warp,
+                   r0, N, lane);
+  if (tq == 0) {
+    const int row_lo = r0 + g, row_hi = row_lo + 8;
+    float* lse = p.lse + (long long)bh * N;
+    if (row_lo < N) lse[row_lo] = (m_lo == NEG_SENTINEL ? m_lo : m_lo * p.scale) + logf(ls_lo);
+    if (row_hi < N) lse[row_hi] = (m_hi == NEG_SENTINEL ? m_hi : m_hi * p.scale) + logf(ls_hi);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -499,21 +849,94 @@ cudaError_t launch_wgmma(const Params& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dynamic shared memory of a block and the blocks of it an SM holds at once
-template <int D>
-cudaError_t occupancy_wgmma(int* smem_bytes, int* blocks_per_sm) {
-  using TL = WgTile<D>;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query: the
+// library links no libcuda of its own
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(entry);
+  }
+  return fn;
+}
+
+// The TMA map of a [B, H, N, D] bf16 operand with element strides (sb, sh,
+// sn) and unit stride along D, read in boxes of 64 columns (one 128-byte
+// swizzle row) by `rows` rows; rows at or past N read as zeros. A dim of
+// extent 1 is never stepped over, so its stride is replaced by one TMA takes.
+bool tensor_map(CUtensorMap* map, const void* base, int B, int H, int N, int D, long long sb,
+                long long sh, long long sn, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t extent[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)H, (cuuint64_t)B};
+  const long long given[3] = {sn, sh, sb};
+  cuuint64_t stride[3];
+  cuuint64_t dense = (cuuint64_t)D * 2;
+  for (int i = 0; i < 3; ++i) {
+    stride[i] = extent[i + 1] == 1 ? dense : (cuuint64_t)given[i] * 2;
+    dense *= extent[i + 1];
+  }
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), extent, stride,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
+  using TL = WsTile;
+  constexpr int D = WS_D;
+  if ((long long)B * p.H > 65535) return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v;
+  if (!tensor_map(&map_q, p.q, B, p.H, p.N, D, p.q_sb, p.q_sh, p.q_sn, WS_CONSUMERS * WS_ROWS) ||
+      !tensor_map(&map_k, p.k, B, p.H, p.N, D, p.k_sb, p.k_sh, p.k_sn, WS_KEYS) ||
+      !tensor_map(&map_v, p.v, B, p.H, p.N, D, p.v_sb, p.v_sh, p.v_sn, WS_KEYS))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_ws_kernel;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)TL::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  *smem_bytes = (int)TL::SMEM_BYTES;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS,
-                                                       TL::SMEM_BYTES);
+  const dim3 grid((p.N + WS_CONSUMERS * WS_ROWS - 1) / (WS_CONSUMERS * WS_ROWS), B * p.H);
+  kernel<<<grid, WS_THREADS, TL::SMEM_BYTES, stream>>>(map_q, map_k, map_v, p);
+  return cudaGetLastError();
 }
 
-// fp32: the FMA kernel; bf16: the tensor-core kernel
-cudaError_t dispatch(const Params& p, int BH, int D, bool bf16_inputs, cudaStream_t stream) {
+// dynamic shared memory of a block and the blocks of it an SM holds at once
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* smem_bytes,
+                      int* blocks_per_sm) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+}
+
+// design 0: fp32 on the FMA kernel, bf16 on the one-warpgroup tensor-core
+// kernel; design 1: bf16 on the warp-specialised kernel (head dim 64)
+cudaError_t dispatch(const Params& p, int B, int D, bool bf16_inputs, int design,
+                     cudaStream_t stream) {
+  const int BH = B * p.H;
+  if (design == 1) {
+    if (!bf16_inputs || D != WS_D) return cudaErrorInvalidValue;
+    return launch_ws(p, B, stream);
+  }
   switch (D) {
     case 32: return bf16_inputs ? launch_wgmma<32>(p, BH, stream) : launch_f32<32>(p, BH, stream);
     case 64: return bf16_inputs ? launch_wgmma<64>(p, BH, stream) : launch_f32<64>(p, BH, stream);
@@ -530,7 +953,7 @@ cudaError_t dispatch(const Params& p, int BH, int D, bool bf16_inputs, cudaStrea
 // current device). Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* valid,
                          void* out, void* lse, int device, int B, int H, int N, int D,
-                         int dtype,
+                         int dtype, int design,
                          long long q_sb, long long q_sh, long long q_sn,
                          long long k_sb, long long k_sh, long long k_sn,
                          long long v_sb, long long v_sh, long long v_sn,
@@ -554,17 +977,26 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(p, B * H, D, dtype == 1, s);
+  if (design != 0 && design != 1) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(p, B, D, dtype == 1, design, s);
 }
 
-// Occupancy of the bf16 kernel at head dim D on the current device: the
-// dynamic shared memory of one block, and how many blocks an SM holds at once
-// given its registers and shared memory. Returns the cudaError_t (0 = success).
-extern "C" int flash_fwd_occupancy(int D, int* smem_bytes, int* blocks_per_sm) {
+// Occupancy of a bf16 kernel at head dim D on the current device (design as
+// flash_fwd's; the warp-specialised one at D = 64 only): the dynamic shared
+// memory of one block, and how many blocks an SM holds at once given its
+// registers and shared memory. Returns the cudaError_t (0 = success).
+extern "C" int flash_fwd_occupancy(int D, int design, int* smem_bytes, int* blocks_per_sm) {
+  if (design == 1)
+    return D == WS_D ? (int)occupancy(flash_fwd_ws_kernel, WS_THREADS, WsTile::SMEM_BYTES,
+                                      smem_bytes, blocks_per_sm)
+                     : (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return (int)occupancy_wgmma<32>(smem_bytes, blocks_per_sm);
-    case 64: return (int)occupancy_wgmma<64>(smem_bytes, blocks_per_sm);
-    case 128: return (int)occupancy_wgmma<128>(smem_bytes, blocks_per_sm);
+    case 32: return (int)occupancy(flash_fwd_wgmma_kernel<32>, THREADS, WgTile<32>::SMEM_BYTES,
+                                   smem_bytes, blocks_per_sm);
+    case 64: return (int)occupancy(flash_fwd_wgmma_kernel<64>, THREADS, WgTile<64>::SMEM_BYTES,
+                                   smem_bytes, blocks_per_sm);
+    case 128: return (int)occupancy(flash_fwd_wgmma_kernel<128>, THREADS,
+                                    WgTile<128>::SMEM_BYTES, smem_bytes, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,13 +3,16 @@ versions, the wrappers that pick between them by device, and the
 differentiable ``flash_attention`` over them.
 
   * ``csrc/flash_fwd.cu`` replaces the TPU kernel ``_flash_fwd_kernel`` of
-    the JAX package's ``ops/flash_attention.py`` (``flash_forward``);
+    the JAX package's ``ops/flash_attention.py`` (``flash_forward``, one
+    launch per call, of the kernel ``forward_kernel`` picks by shape);
   * ``csrc/flash_bwd.cu`` replaces ``_flash_bwd_dkdv_kernel`` and
     ``_flash_bwd_dq_kernel`` (``flash_backward``, two launches per call).
 
 Each source is built, loaded and counted through ``cuda_kernels.py`` (nvcc
-at first use; ``LAUNCHES["flash_fwd"]``, ``["flash_bwd_dkdv"]`` and
-``["flash_bwd_dq"]``). The bf16 kernels, forward and backward, run on the
+at first use; ``LAUNCHES["flash_fwd"]`` counts every forward launch,
+``["flash_fwd_ws"]`` those of the warp-specialised forward among them, and
+``["flash_bwd_dkdv"]`` and ``["flash_bwd_dq"]`` the backward's). The bf16
+kernels, forward and backward, run on the
 tensor cores (``wgmma``) and copy 16 bytes at a time, so their operands must
 be 16-byte aligned (``cuda_kernels.misaligned_operands``); fp32 keeps FMA
 kernels, which take any alignment. A wrapper runs the plain version only for
@@ -30,6 +33,24 @@ NEG_SENTINEL = -1e30
 REFERENCE_BLOCK_K = 128
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The warp-specialised bf16 forward (csrc/flash_fwd.cu, flash_fwd_ws_kernel)
+# takes head dim 64 from this many keys on: a block of three consumer
+# warpgroups owns 192 query rows and walks 128-key stages that a TMA producer
+# warp fills, one block an SM. On an H100 at [2, 48, N, 64] it ties the
+# one-warpgroup kernel at N = 512 and is 24 % faster at 768 (PERF.md); below,
+# the 64-row blocks fill the card better. Its layout is head dim 64's only.
+WS_MIN_KEYS = 768
+_DESIGN = {"flash_fwd": 0, "flash_fwd_ws": 1}
+
+
+def forward_kernel(dtype: torch.dtype, head_dim: int, n: int) -> str:
+    """The forward kernel for a [B, H, n, head_dim] call: "flash_fwd_ws" (the
+    warp-specialised design) for bf16 at head dim 64 and n >= WS_MIN_KEYS,
+    "flash_fwd" (the FMA kernel for fp32, the one-warpgroup tensor-core
+    kernel for bf16) for every other shape. Pure: shape and dtype only."""
+    if dtype == torch.bfloat16 and head_dim == 64 and n >= WS_MIN_KEYS:
+        return "flash_fwd_ws"
+    return "flash_fwd"
 
 
 def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,9 +92,9 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _declare_forward(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 12 + [ctypes.c_float, ptr]
+    lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [i64] * 12 + [ctypes.c_float, ptr]
     lib.flash_fwd.restype = i32
-    lib.flash_fwd_occupancy.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flash_fwd_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.flash_fwd_occupancy.restype = i32
 
 
@@ -98,12 +119,15 @@ def _occupancy(fn, *args) -> dict:
 
 
 def forward_occupancy() -> dict:
-    """Of the bf16 forward kernel at each head dim, on the current card: the
-    dynamic shared memory of one block and the blocks an SM holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 128 threads a block)."""
+    """Of the bf16 forward kernels on the current card, the one-warpgroup
+    kernel at each head dim (128 threads a block) and the warp-specialised
+    one at head dim 64 (512): the dynamic shared memory of one block and the
+    blocks an SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     fn = ck.library("flash_fwd", _declare_forward).flash_fwd_occupancy
-    return {f"flash_fwd_bf16_dh{head_dim}": _occupancy(fn, head_dim)
-            for head_dim in SUPPORTED_HEAD_DIMS}
+    occupancy = {f"flash_fwd_bf16_dh{head_dim}": _occupancy(fn, head_dim, 0)
+                 for head_dim in SUPPORTED_HEAD_DIMS}
+    occupancy["flash_fwd_ws_bf16_dh64"] = _occupancy(fn, 64, 1)
+    return occupancy
 
 
 def backward_occupancy() -> dict:
@@ -161,6 +185,18 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_forward_reference(q, k, v, valid)
     _check_inputs(q, k, v, valid)
     B, H, N, Dh = q.shape
+    return launch_forward_kernel(forward_kernel(q.dtype, Dh, N), q, k, v, valid)
+
+
+def launch_forward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one forward kernel, "flash_fwd" or "flash_fwd_ws" (bf16 at head
+    dim 64 only), on the current stream: (out, lse) as ``flash_forward``.
+    Counts ``LAUNCHES["flash_fwd"]``, and ``["flash_fwd_ws"]`` for the
+    warp-specialised one. The operands are those ``flash_forward`` checked;
+    tests and chip_smoke.py call this directly to hold the two designs
+    against each other at one shape."""
+    B, H, N, Dh = q.shape
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     if q.dtype == torch.bfloat16:
         ck.require_aligned("flash_forward", q=q, k=k, v=v, out=out)
@@ -171,11 +207,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if valid is None else valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), q.device.index or 0,
-        B, H, N, Dh, _DTYPE_CODE[q.dtype], *strides,
+        B, H, N, Dh, _DTYPE_CODE[q.dtype], _DESIGN[kernel], *strides,
         1.0 / (Dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
     ck.LAUNCHES["flash_fwd"] += 1
+    if kernel != "flash_fwd":
+        ck.LAUNCHES[kernel] += 1
     return out, lse
 
 

@@ -1,9 +1,13 @@
 """The port's flash-attention forward against the JAX package: the plain
 PyTorch version against the Pallas kernel in interpret mode (out and lse),
 the dispatch function against the JAX one, the wrapper's refusal to fall
-back, the alignment the bf16 kernel asks of its operands, and the build key.
-The CUDA kernel itself is tested in test_torch_kernels_gpu.py."""
+back, the alignment the bf16 kernel asks of its operands, the build key, the
+forward kernel picked by shape and the C entry's arguments. The CUDA kernels
+themselves are tested in test_torch_kernels_gpu.py."""
 
+import ctypes
+import re
+import types
 from unittest import mock
 
 import jax.numpy as jnp
@@ -210,3 +214,55 @@ def test_wrapper_rejects_a_non_cuda_device():
     q = torch.empty((1, 1, 16, 32), device="meta")
     with pytest.raises(ValueError, match="not CUDA"):
         t_fa.flash_forward(q, q, q)
+
+
+# [B, H, N, Dh] and dtype of the attention calls the cells and chip_smoke.py
+# make, and the forward kernel for each: the warp-specialised design for bf16
+# at head dim 64 from WS_MIN_KEYS keys on, today's kernel for the rest
+KERNEL_CHOICES = [
+    ((2, 48, 17776, 64), torch.bfloat16, "flash_fwd_ws"),  # CogVideoX-5B, the CFG batch
+    ((2, 48, 1576, 64), torch.bfloat16, "flash_fwd_ws"),  # CogVideoX, one latent frame
+    ((2, 48, t_fa.WS_MIN_KEYS, 64), torch.bfloat16, "flash_fwd_ws"),
+    ((2, 48, t_fa.WS_MIN_KEYS - 1, 64), torch.bfloat16, "flash_fwd"),
+    ((16, 8, 133, 64), torch.bfloat16, "flash_fwd"),  # mvp sampler
+    ((8, 8, 133, 64), torch.bfloat16, "flash_fwd"),  # mvp train
+    ((16, 6, 397, 64), torch.bfloat16, "flash_fwd"),  # t2a sampler
+    ((16, 4, 77, 64), torch.bfloat16, "flash_fwd"),  # text encoder
+    ((16, 6, 64, 64), torch.bfloat16, "flash_fwd"),  # pixel sampler
+    ((16, 8, 421, 128), torch.bfloat16, "flash_fwd"),  # spec8 sampler and serving
+    ((8, 8, 421, 128), torch.bfloat16, "flash_fwd"),  # spec8 train
+    ((1, 24, 4608, 128), torch.bfloat16, "flash_fwd"),  # FLUX.1-dev
+    ((16, 4, 1152, 128), torch.bfloat16, "flash_fwd"),  # t2i sampler
+    ((1, 24, 17776, 128), torch.bfloat16, "flash_fwd"),  # Dh 128 at long N
+    ((2, 48, 17776, 32), torch.bfloat16, "flash_fwd"),  # Dh 32 at long N
+    ((2, 48, 17776, 64), torch.float32, "flash_fwd"),  # fp32
+]
+
+
+@pytest.mark.parametrize("shape,dtype,kernel", KERNEL_CHOICES,
+                         ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_forward_kernel_by_shape(shape, dtype, kernel):
+    B, H, N, Dh = shape
+    assert t_fa.forward_kernel(dtype, Dh, N) == kernel
+
+
+def test_forward_entry_takes_the_declared_arguments():
+    """The C entries of csrc/flash_fwd.cu (which cannot be built here) have
+    the parameters, in kind and order, that the ctypes declarations pass:
+    flash_fwd its pointers, ints (device, B, H, N, D, dtype, the design),
+    twelve strides, the scale and the stream; flash_fwd_occupancy the head
+    dim, the design and two int pointers."""
+    code = ck.SOURCES["flash_fwd"].read_text()
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float, "int*": ctypes.POINTER(ctypes.c_int)}
+    lib = types.SimpleNamespace(flash_fwd=types.SimpleNamespace(),
+                                flash_fwd_occupancy=types.SimpleNamespace())
+    t_fa._declare_forward(lib)
+    for entry in ("flash_fwd", "flash_fwd_occupancy"):
+        params = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{', code, re.S).group(1)
+        declared = []
+        for param in params.split(","):
+            words = param.replace("const ", "").replace("*", " * ").split()
+            declared.append(kinds[" ".join(words[:-1]).replace(" *", "*")])
+        assert getattr(lib, entry).argtypes == declared, entry
+    assert t_fa._DESIGN == {"flash_fwd": 0, "flash_fwd_ws": 1}

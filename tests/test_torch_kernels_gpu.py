@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (flash forward, flash backward dK/dV and dQ)
+"""The port's CUDA kernels (flash forward, its warp-specialised design at
+long N, flash backward dK/dV and dQ)
 against their plain PyTorch versions, and the int8 W8A8 product
 (torch._int_mm) against its CPU path, on a CUDA card only (marker `gpu`;
 every test skips without a card). Imports no JAX, so it runs where only the
@@ -115,7 +116,8 @@ def test_flash_fwd_takes_the_sampler_strides(cuda):
     out, lse = t_fa.flash_forward(q, k, v)
     assert out.transpose(1, 2).is_contiguous()  # a [B, N, H, Dh] buffer
     ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
-    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0.0,
+                               atol=2e-2 * float(ref_out.float().abs().max()))
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
 
 
@@ -151,6 +153,92 @@ def test_flash_fwd_is_bit_identical_from_call_to_call(cuda, shape, n_masked):
     second = t_fa.flash_forward(q, k, v, valid)
     for name, a, b in zip(("out", "lse"), first, second):
         assert torch.equal(a, b), name
+
+
+# The warp-specialised forward (flash_fwd_ws_kernel: 192 query rows a block,
+# 128 keys a stage): N at the threshold, one over it, a ragged N (2000 = 10 x
+# 192 + 80 rows, 15 x 128 + 80 keys) and CogVideoX's 17 776, at B * H = 4
+WS_N = [t_fa.WS_MIN_KEYS, t_fa.WS_MIN_KEYS + 1, 2000, 17776]
+
+
+def _ws_valid(dev, N, mask):
+    """[2, N] bool, True = attendable: none, ~30 % of keys at random, the
+    first 128-key stage of batch row 0, or every key of batch row 0."""
+    if mask == "none":
+        return None
+    if mask == "keys":
+        g = torch.Generator(device=dev).manual_seed(N)
+        return torch.rand((2, N), generator=g, device=dev) > 0.3
+    valid = torch.ones((2, N), dtype=torch.bool, device=dev)
+    valid[0, :128 if mask == "first_stage" else N] = False
+    return valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", ["none", "keys", "first_stage", "row_all"])
+@pytest.mark.parametrize("N", WS_N)
+def test_ws_forward_matches_reference_and_todays_kernel(cuda, N, mask):
+    """flash_forward picks the warp-specialised kernel: one launch, counted
+    under both keys; out within 2e-2 of max |plain out| of the plain version
+    (a few bf16 roundings of out at its largest; a typical |out| at N =
+    17 776 is about 0.012, so an absolute 2e-2 would pass a P V left out)
+    and within twice that of today's kernel on the same operands, lse within
+    1e-4 of both; bit-identical repeats; a batch row whose keys are all
+    masked gives exact zeros and lse -1e30."""
+    q, k, v, _ = _inputs(cuda, (2, 2, N, 64), torch.bfloat16, 0, seed=17)
+    valid = _ws_valid(cuda, N, mask)
+    assert t_fa.forward_kernel(q.dtype, 64, N) == "flash_fwd_ws"
+    before = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_fwd_ws"])
+    out, lse = t_fa.flash_forward(q, k, v, valid)
+    assert (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_fwd_ws"]) == (before[0] + 1,
+                                                                      before[1] + 1)
+    again = t_fa.flash_forward(q, k, v, valid)
+    today = t_fa.launch_forward_kernel("flash_fwd", q, k, v, valid)
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["flash_fwd_ws"] == before[1] + 2
+    out_tol = 2e-2 * float(ref_out.float().abs().max())
+    for (want, want_lse), atol in (((ref_out, ref_lse), out_tol), (today, 2 * out_tol)):
+        torch.testing.assert_close(out.float(), want.float(), rtol=0.0, atol=atol)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    if mask == "row_all":
+        assert bool((out[0] == 0).all()) and bool((lse[0] == -1e30).all())
+
+
+@pytest.mark.gpu
+def test_ws_forward_takes_the_cogvideox_strides(cuda):
+    """CogVideoX's operands: q and k [B, H, N, Dh] after the QK norm and
+    RoPE, v a head view of the to_v projection [B, N, H * Dh]; out is a view
+    of a [B, N, H, Dh] buffer. TMA reads and the epilogue writes them with
+    their strides, and no copy is made."""
+    B, N, H, Dh = 2, 2000, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q, k = (torch.randn((B, H, N, Dh), generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((B, N, H * Dh), generator=g, device=cuda).to(torch.bfloat16)
+    v = v.view(B, N, H, Dh).transpose(1, 2)
+    assert not v.is_contiguous()
+    before = ck.LAUNCHES["flash_fwd_ws"]
+    out, lse = t_fa.flash_forward(q, k, v)
+    assert ck.LAUNCHES["flash_fwd_ws"] == before + 1
+    assert out.transpose(1, 2).is_contiguous()
+    ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0.0,
+                               atol=2e-2 * float(ref_out.float().abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ws_forward_is_not_taken_below_its_shapes(cuda):
+    """Below WS_MIN_KEYS, at another head dim and in fp32 the forward stays
+    on today's kernels: LAUNCHES["flash_fwd_ws"] does not move."""
+    before = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_fwd_ws"])
+    for shape, dtype in (((2, 2, t_fa.WS_MIN_KEYS - 1, 64), torch.bfloat16),
+                         ((1, 2, 2000, 128), torch.bfloat16), ((1, 2, 2000, 64), torch.float32)):
+        q, k, v, _ = _inputs(cuda, shape, dtype, 0, seed=19)
+        t_fa.flash_forward(q, k, v)
+    assert (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_fwd_ws"]) == (before[0] + 3, before[1])
 
 
 @pytest.mark.gpu
@@ -361,7 +449,8 @@ def test_flash_fwd_takes_the_flagship_sampler_strides(cuda):
     out, lse = t_fa.flash_forward(q, k, v)
     assert out.transpose(1, 2).is_contiguous()
     ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
-    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0.0,
+                               atol=2e-2 * float(ref_out.float().abs().max()))
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
 
 
@@ -657,7 +746,8 @@ def test_flash_kernels_at_the_pixel_shapes(cuda, shape, backward):
     q, k, v, _ = _inputs(cuda, shape, torch.bfloat16, 0, seed=40)
     out, lse = t_fa.flash_forward(q, k, v)
     ref_out, ref_lse = t_fa.flash_forward_reference(q, k, v)
-    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0.0,
+                               atol=2e-2 * float(ref_out.float().abs().max()))
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
     assert torch.equal(out, t_fa.flash_forward(q, k, v)[0])
     if backward:
